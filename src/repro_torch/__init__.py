@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the MATSA sDTW system (``repro``), for NVIDIA
+Hopper.
+
+The JAX package ``repro`` is the reference; this package mirrors its
+layout (``repro_torch.core`` ↔ ``repro.core``, ``repro_torch.kernels.sdtw``
+↔ ``repro.kernels.sdtw``) and imports neither JAX nor ``repro``. Public
+entry points run on the CUDA device unless called with ``device="cpu"``.
+"""
+from .core import MatsaResult, matsa, sdtw
+
+__all__ = ["MatsaResult", "matsa", "sdtw"]

@@ -1,0 +1,21 @@
+"""The port's core: the semiring, the sDTW schedules, the engine and the
+``matsa()`` front door (query filtering)."""
+from .distances import METRICS, pointwise_distance
+from .engine import choose_impl, sdtw
+from .matsa_api import (MatsaResult, load_real_workload_shapes, matsa,
+                        synthetic_timeseries)
+from .request import SdtwRequest
+from .sdtw import (sdtw_batch, sdtw_chunked, sdtw_rowscan, sdtw_wavefront,
+                   self_join_windows)
+from .sdtw_ref import dtw_ref, sdtw_matrix, sdtw_ref
+from .topk import topk_init, topk_merge, topk_select
+
+__all__ = [
+    "sdtw", "choose_impl", "sdtw_chunked", "SdtwRequest",
+    "METRICS", "pointwise_distance",
+    "MatsaResult", "matsa", "load_real_workload_shapes",
+    "synthetic_timeseries",
+    "sdtw_batch", "sdtw_rowscan", "sdtw_wavefront", "self_join_windows",
+    "sdtw_ref", "sdtw_matrix", "dtw_ref",
+    "topk_init", "topk_merge", "topk_select",
+]

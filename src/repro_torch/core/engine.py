@@ -1,0 +1,344 @@
+"""The sDTW engine — the front door every caller routes through.
+
+Counterpart of ``repro.core.engine`` (``sdtw`` and its dispatch; ``align``
+and ``stream`` come with ROADMAP items 7 and 9). ``sdtw()`` hides the
+execution regimes behind one call:
+
+  * ``rowscan`` / ``wavefront`` — the in-core schedules of
+    ``repro_torch.core.sdtw``, plain PyTorch on any device.
+  * ``pallas``  — the repo's hand-written sDTW kernel
+    (``repro_torch.kernels.sdtw``): the CUDA kernel for tensors on the
+    card, its plain PyTorch version on the CPU. The name is kept from
+    the reference so that callers port like for like.
+  * ``chunked`` — reference streaming in fixed tiles with the O(N)
+    boundary-column carry (MATSA's inter-subarray pass gates, §III-B).
+  * ``sharded`` — not ported yet (ROADMAP item 12).
+
+Dispatch rules (``impl="auto"``), the reference's ``tune='off'`` rules
+with rule 3 read for the card:
+
+  1. ``mesh`` given (or ``impl="sharded"``)        → sharded driver.
+  2. ``top_k`` or ``chunk`` given                  → chunked streaming.
+  3. the tensors are on a CUDA device and there is
+     no exclusion zone                             → the sDTW kernel (it
+     loops over any M inside each block).
+  4. M ≥ ``CHUNK_THRESHOLD``                       → chunked streaming.
+  5. M < 2·N                                       → wavefront.
+  6. otherwise                                     → rowscan.
+
+``impl='pallas'`` with ``chunk=`` streams the reference through the
+kernel's chunk carry: references up to ``PALLAS_FUSED_MAX`` samples run
+as one launch (the kernel walks the whole reference itself, ``chunk`` is
+advisory), longer ones slice by slice on the device, the carry never
+leaving it (``_pallas_scan_streamed``). ``_pallas_host_loop`` keeps the
+one-upload-per-slice loop for a reference held on the host.
+
+Ragged batches: a *list* of 1-D queries is bucketed by power-of-two
+padded length (at least ``MIN_BUCKET``) and each bucket runs as one call.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import as_tensor, resolve_device
+from .distances import accum_dtype, result_dtype
+from .request import SdtwRequest, _not_ported
+from .sdtw import sdtw_batch, sdtw_chunked
+
+CHUNK_THRESHOLD = 1 << 17   # auto-switch to streaming above this M
+DEFAULT_CHUNK = 8192        # tile size for chunked streaming
+MIN_BUCKET = 16             # smallest ragged-batch padded length
+#: Longest reference the ``impl='pallas'`` + ``chunk=`` path runs as one
+#: launch; longer references stream slice by slice.
+PALLAS_FUSED_MAX = 1 << 22
+
+
+def choose_impl_explained(nq: int, n: int, m: int, *,
+                          backend: Optional[str] = None, mesh=None,
+                          chunk: Optional[int] = None,
+                          has_exclusion: bool = False,
+                          top_k: Optional[int] = None, tune: str = "off",
+                          metric: str = "abs_diff",
+                          dtype: str = "int32") -> tuple:
+    """``choose_impl`` with its reasoning: ``(impl, source, reason,
+    candidates)``. ``backend`` is the device type the call runs on
+    (``'cuda'``, the default, or ``'cpu'``)."""
+    if tune != "off":
+        raise _not_ported(f"tune={tune!r}", 11)
+    if mesh is not None:
+        return ("sharded", "structural", "mesh shards the reference axis",
+                ())
+    if top_k is not None:
+        return ("chunked", "structural",
+                "top-K heap rides the chunk boundary carry", ())
+    if chunk is not None:
+        return ("chunked", "structural", "explicit chunk forces streaming",
+                ())
+    backend = "cuda" if backend is None else backend
+    if backend == "cuda" and not has_exclusion:
+        return ("pallas", "structural",
+                "CUDA device (the sDTW kernel walks any M)", ())
+    if m >= CHUNK_THRESHOLD:
+        return ("chunked", "structural",
+                f"M >= CHUNK_THRESHOLD (1<<{CHUNK_THRESHOLD.bit_length() - 1})",
+                ())
+    if m < 2 * n:
+        return ("wavefront", "legacy", "M < 2N: diagonal depth is cheap", ())
+    return ("rowscan", "legacy", "default in-core schedule", ())
+
+
+def choose_impl(nq: int, n: int, m: int, *, backend: Optional[str] = None,
+                mesh=None, chunk: Optional[int] = None,
+                has_exclusion: bool = False, top_k: Optional[int] = None,
+                tune: str = "off", metric: str = "abs_diff",
+                dtype: str = "int32") -> str:
+    """The ``impl="auto"`` dispatch rule (see the module docstring)."""
+    return choose_impl_explained(
+        nq, n, m, backend=backend, mesh=mesh, chunk=chunk,
+        has_exclusion=has_exclusion, top_k=top_k, tune=tune, metric=metric,
+        dtype=dtype)[0]
+
+
+def _bucket_len(length: int) -> int:
+    return max(MIN_BUCKET, 1 << max(0, int(length) - 1).bit_length())
+
+
+def _normalize_excl(val, nq: int, device):
+    if val is None:
+        return torch.full((nq,), -1, dtype=torch.int32, device=device)
+    arr = as_tensor(val, device, torch.int32)
+    return arr.expand(nq) if arr.ndim == 0 else arr
+
+
+def sdtw(queries, reference, qlens=None, *, metric: str = "abs_diff",
+         impl: str = "auto", chunk: Optional[int] = None, excl_lo=None,
+         excl_hi=None, mesh=None, mesh_shape=None, ref_axis: str = "ref",
+         n_micro: Optional[int] = None, top_k: Optional[int] = None,
+         return_positions: bool = False, return_spans: bool = False,
+         excl_zone=None, excl_mode: str = "end",
+         block_q: Optional[int] = None, block_m: Optional[int] = None,
+         tune: str = "off", explain: bool = False, device=None):
+    """Subsequence-DTW distances of ``queries`` against ``reference``.
+
+    Args as ``repro.core.engine.sdtw``: ``queries`` (nq, N) padded, a
+    single (N,) query, or a list of 1-D queries (ragged); ``reference``
+    (M,); ``qlens`` (nq,) true lengths; ``metric``; ``impl`` (one of
+    ``request.IMPLS``; ``'pallas'`` is the hand-written sDTW kernel);
+    ``chunk``; ``excl_lo``/``excl_hi``; ``top_k``; ``return_positions``;
+    ``return_spans``; ``excl_zone``; ``excl_mode``; ``block_q``/
+    ``block_m`` (the kernel's queries per block and staged reference
+    tile). ``device`` is where it runs: ``None`` is the CUDA device (an
+    error when none is present), ``"cpu"`` the plain PyTorch versions.
+    ``mesh``/``mesh_shape``/``n_micro``, ``tune`` other than ``'off'``
+    and ``explain`` are not ported yet.
+
+    Returns (nq,) distances in the accumulator dtype — a 0-d tensor for a
+    single 1-D query; a (dists, positions) pair or (dists, starts, ends)
+    triple in the positions/spans modes; (nq, k) stacks with ``top_k``.
+    """
+    return SdtwRequest(
+        queries=queries, reference=reference, qlens=qlens, metric=metric,
+        impl=impl, chunk=chunk, excl_lo=excl_lo, excl_hi=excl_hi, mesh=mesh,
+        mesh_shape=mesh_shape, ref_axis=ref_axis, n_micro=n_micro,
+        top_k=top_k, return_positions=return_positions,
+        return_spans=return_spans, excl_zone=excl_zone, excl_mode=excl_mode,
+        block_q=block_q, block_m=block_m, tune=tune, explain=explain,
+        device=device).run()
+
+
+def _execute_sdtw(req: SdtwRequest):
+    """The dispatcher behind ``SdtwRequest.run()`` (the request is
+    validated): shape resolution, ``impl='auto'`` dispatch and the
+    execution paths."""
+    dev = resolve_device(req.device)
+    if isinstance(req.queries, (list, tuple)):
+        return _sdtw_ragged(req, dev)
+
+    queries = as_tensor(req.queries, dev)
+    reference = as_tensor(req.reference, dev)
+    single = queries.ndim == 1
+    if single:
+        queries = queries[None, :]
+    nq, n = queries.shape
+    m = reference.shape[0]
+    qlens = None if req.qlens is None else as_tensor(req.qlens, dev,
+                                                     torch.int32)
+    has_excl = req.excl_lo is not None or req.excl_hi is not None
+    impl = req.impl
+    if impl == "auto":
+        impl = choose_impl(nq, n, m, backend=dev.type, chunk=req.chunk,
+                           has_exclusion=has_excl, top_k=req.top_k)
+    if impl == "pallas" and has_excl:
+        raise ValueError("the pallas kernel does not support exclusion "
+                         "zones; use impl='rowscan' or 'chunked'")
+
+    if impl in ("rowscan", "wavefront"):
+        lo = _normalize_excl(req.excl_lo, nq, dev) if has_excl else None
+        hi = _normalize_excl(req.excl_hi, nq, dev) if has_excl else None
+        out = sdtw_batch(queries, reference, qlens, req.metric, impl, lo, hi,
+                         return_positions=req.return_positions,
+                         return_spans=req.return_spans)
+    elif impl == "pallas":
+        from repro_torch.kernels.sdtw import sdtw_cuda
+        if req.chunk is None:
+            out = sdtw_cuda(queries, reference, qlens, req.metric,
+                            block_q=req.block_q, block_m=req.block_m,
+                            return_positions=req.return_positions,
+                            return_spans=req.return_spans, device=dev)
+        else:
+            out = _pallas_streamed(queries, reference, qlens, req.metric,
+                                   req.chunk, req.block_q, req.block_m,
+                                   req.return_positions, req.return_spans)
+    else:  # chunked
+        out = sdtw_chunked(queries, reference, qlens, req.metric,
+                           req.chunk or DEFAULT_CHUNK,
+                           _normalize_excl(req.excl_lo, nq, dev),
+                           _normalize_excl(req.excl_hi, nq, dev),
+                           top_k=req.top_k, excl_zone=req.excl_zone,
+                           return_positions=req.return_positions,
+                           return_spans=req.return_spans,
+                           excl_mode=req.excl_mode)
+    if single:
+        out = tuple(o[0] for o in out) if isinstance(out, tuple) else out[0]
+    return out
+
+
+def _pallas_streamed(queries, reference, qlens, metric, chunk, block_q,
+                     block_m, return_positions, return_spans=False):
+    """The ``impl='pallas'`` + ``chunk=`` dispatcher: one launch for
+    references up to ``PALLAS_FUSED_MAX`` samples (``chunk`` advisory),
+    the device-side slice loop beyond."""
+    from repro_torch.kernels.sdtw import sdtw_cuda
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if reference.shape[0] <= PALLAS_FUSED_MAX:
+        return sdtw_cuda(queries, reference, qlens, metric, block_q=block_q,
+                         block_m=block_m, return_positions=return_positions,
+                         return_spans=return_spans, device=queries.device)
+    return _pallas_scan_streamed(queries, reference, qlens, metric,
+                                 chunk=chunk, block_q=block_q,
+                                 block_m=block_m,
+                                 return_positions=return_positions,
+                                 return_spans=return_spans)
+
+
+def _unpack_kernel_carry(carry, return_positions, return_spans):
+    if return_spans:
+        _, _, best, pos, start = carry
+        return best, start, pos
+    _, best, pos = carry
+    return (best, pos) if return_positions else best
+
+
+def _pallas_scan_streamed(queries, reference, qlens, metric, *, chunk,
+                          block_q, block_m, return_positions, return_spans):
+    """Device-side slice loop: the reference, right-padded to a multiple
+    of ``chunk`` on its device, is fed slice by slice through the
+    kernel's carry, which never leaves the device; the tail slice is
+    masked via ``ref_len``. The start lane joins the carry only when
+    spans are requested."""
+    from repro_torch.kernels.sdtw import kernel_carry_init, sdtw_cuda
+    b, n = queries.shape
+    m = reference.shape[0]
+    n_slices = -(-m // chunk)
+    r_pad = torch.nn.functional.pad(reference, (0, n_slices * chunk - m))
+    acc = accum_dtype(result_dtype(queries, reference))
+    carry = kernel_carry_init(b, n, acc, track_start=return_spans,
+                              device=queries.device)
+    for t in range(n_slices):
+        off = t * chunk
+        _, carry = sdtw_cuda(queries, r_pad[off:off + chunk], qlens, metric,
+                             block_q=block_q, block_m=block_m, carry=carry,
+                             ref_offset=off, ref_len=min(chunk, m - off),
+                             return_carry=True, track_start=return_spans,
+                             device=queries.device)
+    return _unpack_kernel_carry(carry, return_positions, return_spans)
+
+
+def _pallas_host_loop(queries, reference, qlens, metric, chunk, block_q=None,
+                      block_m=None, return_positions=False,
+                      return_spans=False):
+    """One kernel call per slice of a reference that may stay on the host:
+    each slice is cut, right-padded to ``chunk`` (masked via ``ref_len``)
+    and moved to the queries' device. Not dispatched automatically; the
+    semantic reference the device-side paths are tested against."""
+    from repro_torch.kernels.sdtw import kernel_carry_init, sdtw_cuda
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    b, n = queries.shape
+    m = reference.shape[0]
+    dev = queries.device
+    acc = accum_dtype(result_dtype(queries, reference))
+    carry = kernel_carry_init(b, n, acc, track_start=return_spans,
+                              device=dev)
+    for off in range(0, m, chunk):
+        sl = reference[off:off + chunk]
+        cl = sl.shape[0]
+        sl = torch.nn.functional.pad(sl, (0, chunk - cl)).to(dev)
+        _, carry = sdtw_cuda(queries, sl, qlens, metric, block_q=block_q,
+                             block_m=block_m, carry=carry, ref_offset=off,
+                             ref_len=cl, return_carry=True,
+                             track_start=return_spans, device=dev)
+    return _unpack_kernel_carry(carry, return_positions, return_spans)
+
+
+def bucketize(lengths: Sequence[int]):
+    """Group query indices by padded power-of-two bucket length:
+    ``{bucket_len: [query indices]}``, deterministically ordered."""
+    buckets: dict[int, list[int]] = {}
+    for i, L in enumerate(lengths):
+        if L < 1:
+            raise ValueError(f"query {i} is empty")
+        buckets.setdefault(_bucket_len(L), []).append(i)
+    return dict(sorted(buckets.items()))
+
+
+def pad_ragged_bucket(qs, idxs, blen: int):
+    """Zero-pad the selected numpy queries to (len(idxs), blen) in their
+    promoted dtype. Returns numpy ``(padded, qlens)``."""
+    dtype = np.result_type(*[qs[i].dtype for i in idxs])
+    padded = np.zeros((len(idxs), blen), dtype)
+    qlens = np.empty((len(idxs),), np.int32)
+    for k, i in enumerate(idxs):
+        padded[k, :len(qs[i])] = qs[i]
+        qlens[k] = len(qs[i])
+    return padded, qlens
+
+
+def _sdtw_ragged(req: SdtwRequest, dev: torch.device):
+    """Bucketed dispatch for mixed-length query sets. As in the reference,
+    each bucket passes per-query exclusion arrays (``-1`` when none were
+    given), so ``impl='auto'`` never picks the kernel for a ragged list."""
+    qs = [q.cpu().numpy() if isinstance(q, torch.Tensor) else np.asarray(q)
+          for q in req.queries]
+    nq = len(qs)
+    n_out = (3 if req.return_spans
+             else 2 if (req.top_k is not None or req.return_positions)
+             else 1)
+    if nq == 0:
+        shape = (0,) if req.top_k is None else (0, req.top_k)
+        empty = tuple(torch.zeros(shape, dtype=torch.int32, device=dev)
+                      for _ in range(n_out))
+        return empty if n_out > 1 else empty[0]
+    lo = _normalize_excl(req.excl_lo, nq, "cpu").numpy()
+    hi = _normalize_excl(req.excl_hi, nq, "cpu").numpy()
+    outs = [[None] * nq for _ in range(n_out)]
+    for blen, idxs in bucketize([len(q) for q in qs]).items():
+        padded, qlens = pad_ragged_bucket(qs, idxs, blen)
+        res = sdtw(torch.from_numpy(padded), req.reference,
+                   torch.from_numpy(qlens), metric=req.metric, impl=req.impl,
+                   chunk=req.chunk, excl_lo=torch.from_numpy(lo[idxs]),
+                   excl_hi=torch.from_numpy(hi[idxs]), top_k=req.top_k,
+                   return_positions=req.return_positions,
+                   return_spans=req.return_spans, excl_zone=req.excl_zone,
+                   excl_mode=req.excl_mode, block_q=req.block_q,
+                   block_m=req.block_m, device=dev)
+        res = res if isinstance(res, tuple) else (res,)
+        for t in range(n_out):
+            for k, i in enumerate(idxs):
+                outs[t][i] = res[t][k]
+    stacked = tuple(torch.stack(o) for o in outs)
+    return stacked if n_out > 1 else stacked[0]

@@ -1,0 +1,96 @@
+"""MATSA host interface (paper Listing 1) in PyTorch.
+
+Counterpart of ``repro.core.matsa_api``: arrays in,
+``MatsaResult(distances, anomalies)`` out, for the query-filtering mode
+(Algorithm 1). The self-join mode comes with the matrix-profile slice
+(ROADMAP.md queue 1, item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import as_tensor, resolve_device
+from . import engine
+from .request import _not_ported
+
+MODES = ("query_filtering", "self_join")
+
+
+@dataclasses.dataclass
+class MatsaResult:
+    distances: torch.Tensor                 # (n_queries,) sDTW distance
+    anomalies: Optional[torch.Tensor]       # (n_queries,) bool, if threshold
+    window_starts: Optional[torch.Tensor] = None  # self_join only
+    profile: Optional[object] = None              # self_join only
+
+
+def matsa(reference, queries=None, query_sizes=None, *,
+          mode: str = "query_filtering", dist_metric: str = "abs_diff",
+          anomaly_threshold=None, window: int = None, stride: int = 1,
+          exclusion: bool = True, impl: str = "auto", chunk: int = None,
+          mesh=None, device=None) -> MatsaResult:
+    """Run TSA over a reference, per the paper's host API.
+
+    query_filtering: ``queries`` (n_queries, max_len) padded array compared
+    against ``reference``; ``query_sizes`` gives true lengths. An
+    ``anomaly_threshold`` marks queries whose best-alignment distance
+    exceeds it (discords, §II-A). The distances come from
+    ``repro_torch.core.engine.sdtw`` (``impl``, ``chunk`` and ``mesh``
+    pass straight through); on the card that is the hand-written sDTW
+    kernel. ``device`` is where it runs (``None``: the CUDA device).
+    """
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "self_join":
+        if window is None:
+            raise ValueError("self_join mode requires window=")
+        raise _not_ported("matsa(mode='self_join')", 10)
+    if queries is None:
+        raise ValueError("query_filtering mode requires queries=")
+    dev = resolve_device(device)
+    queries = as_tensor(queries, dev)
+    if queries.ndim == 1:
+        queries = queries[None, :]
+    nq = queries.shape[0]
+    qlens = (torch.full((nq,), queries.shape[1], dtype=torch.int32,
+                        device=dev)
+             if query_sizes is None else as_tensor(query_sizes, dev,
+                                                   torch.int32))
+    distances = engine.sdtw(queries, reference, qlens, metric=dist_metric,
+                            impl=impl, chunk=chunk, mesh=mesh, device=dev)
+    anomalies = None
+    if anomaly_threshold is not None:
+        anomalies = distances > torch.as_tensor(
+            anomaly_threshold, device=dev).to(distances.dtype)
+    return MatsaResult(distances=distances, anomalies=anomalies)
+
+
+def load_real_workload_shapes():
+    """Table V of the paper: the six real-world workload shapes."""
+    return {
+        "Human":      dict(ref_size=7_997,     query_size=120,  num_queries=131_072),
+        "Song":       dict(ref_size=20_234,    query_size=200,  num_queries=65_536),
+        "Penguin":    dict(ref_size=109_842,   query_size=800,  num_queries=32_768),
+        "Seismology": dict(ref_size=1_727_990, query_size=64,   num_queries=16_384),
+        "Power":      dict(ref_size=1_754_985, query_size=1536, num_queries=16_384),
+        "ECG":        dict(ref_size=1_800_000, query_size=512,  num_queries=16_384),
+    }
+
+
+def synthetic_timeseries(rng: np.random.Generator, size: int,
+                         anomaly_rate: float = 0.01, dtype=np.int32):
+    """Synthetic sensor stream: smooth base signal + sparse anomalies
+    (numpy, so both packages see the same data from one seed)."""
+    t = np.arange(size)
+    base = (1000 * np.sin(2 * np.pi * t / 97.0)
+            + 400 * np.sin(2 * np.pi * t / 31.0)
+            + rng.normal(0, 20, size))
+    n_anom = max(1, int(size * anomaly_rate / 64))
+    starts = rng.integers(0, max(1, size - 64), n_anom)
+    for s in starts:
+        base[s:s + 64] += rng.normal(0, 800, min(64, size - s))
+    return base.astype(dtype)

@@ -1,0 +1,27 @@
+"""Device resolution shared by the port's public entry points.
+
+The port runs on the card unless the caller asks for the CPU: every
+entry point takes ``device=None``, which means ``torch.device("cuda")``,
+and refuses to run silently on the CPU when no CUDA device is present.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the CUDA device; anything else is passed to
+    ``torch.device``. Raises ``RuntimeError`` when a CUDA device is asked
+    for (explicitly or by default) and none is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "present; pass device='cpu' to run the plain PyTorch versions")
+    return dev
+
+
+def as_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """A tensor on ``device`` from a tensor, numpy array or Python value
+    (numpy dtypes are kept; ``dtype`` converts)."""
+    return torch.as_tensor(x).to(device=device, dtype=dtype)

@@ -1,0 +1,301 @@
+"""repro_torch's engine, request and ``matsa()`` against the JAX package.
+
+The port runs with ``device="cpu"`` (its plain PyTorch versions: the
+kernel impl runs the kernel's plain version); the reference runs under
+JAX on the CPU with ``tune='off'`` (the port's only tuning mode; int32
+answers do not depend on tuning). int32 results are compared bitwise.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import engine as jengine
+from repro.core import matsa as jmatsa
+from repro.core import matsa_api as jmatsa_api
+from repro_torch.core import engine as tengine
+from repro_torch.core import matsa as tmatsa
+from repro_torch.core import matsa_api as tmatsa_api
+from repro_torch.core.request import SdtwRequest
+
+
+def _np(x):
+    if isinstance(x, (tuple, list)):
+        return [_np(y) for y in x]
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _equal(got, want, msg=""):
+    got, want = _np(got), _np(want)
+    if isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), msg
+        for g, w in zip(got, want):
+            _equal(g, w, msg)
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape, (
+        msg, got.dtype, want.dtype, got.shape, want.shape)
+    np.testing.assert_array_equal(got, want, err_msg=msg)
+
+
+def _tsdtw(*a, **kw):
+    return tengine.sdtw(*a, device="cpu", **kw)
+
+
+def _jsdtw(*a, **kw):
+    return jengine.sdtw(*[jnp.asarray(x) if isinstance(x, np.ndarray) else x
+                          for x in a], tune="off", **kw)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,kw", [
+    ((8, 16, 4096), {}),
+    ((8, 64, 100), {}),
+    ((8, 16, tengine.CHUNK_THRESHOLD), {}),
+    ((8, 16, 64), dict(chunk=16)),
+    ((8, 16, 4096), dict(top_k=2)),
+    ((8, 16, 4096), dict(has_exclusion=True)),
+    ((8, 16, tengine.CHUNK_THRESHOLD), dict(has_exclusion=True)),
+])
+def test_cpu_dispatch_is_the_reference_rule(shape, kw):
+    assert (tengine.choose_impl(*shape, backend="cpu", **kw)
+            == jengine.choose_impl(*shape, backend="cpu", tune="off", **kw))
+
+
+def test_cuda_dispatch_rule_3():
+    """Rule 3 reads "the tensors are on a CUDA device and there is no
+    exclusion zone → the kernel"; the structural rules before it hold."""
+    ci = tengine.choose_impl
+    assert ci(8, 16, 4096, backend="cuda") == "pallas"
+    assert ci(8, 16, tengine.CHUNK_THRESHOLD, backend="cuda") == "pallas"
+    assert ci(8, 16, 4096) == "pallas"                  # the card's default
+    assert ci(8, 16, 4096, backend="cuda", chunk=64) == "chunked"
+    assert ci(8, 16, 4096, backend="cuda", top_k=3) == "chunked"
+    assert ci(8, 16, 4096, backend="cuda", has_exclusion=True) == "rowscan"
+    assert ci(8, 16, 4096, backend="cuda", mesh=object()) == "sharded"
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ci(8, 16, 4096, backend="cuda", tune="model")
+
+
+# ---------------------------------------------------------------------------
+# engine.sdtw on every ported path
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def batch():
+    rng = np.random.default_rng(20261017)
+    q = rng.integers(-40, 40, (4, 8)).astype(np.int32)
+    r = rng.integers(-40, 40, 70).astype(np.int32)
+    qlens = np.array([8, 3, 1, 6], np.int32)
+    return q, r, qlens
+
+
+@pytest.mark.parametrize("impl,kw", [
+    ("auto", {}), ("rowscan", {}), ("wavefront", {}), ("pallas", {}),
+    ("pallas", dict(chunk=16)), ("chunked", dict(chunk=16)),
+], ids=["auto", "rowscan", "wavefront", "pallas", "pallas_chunk",
+        "chunked"])
+@pytest.mark.parametrize("mode", ["dist", "positions", "spans"])
+def test_engine_paths_match_reference(impl, kw, mode, batch):
+    q, r, qlens = batch
+    out = dict(return_positions=mode == "positions",
+               return_spans=mode == "spans")
+    _equal(_tsdtw(q, r, qlens, impl=impl, **kw, **out),
+           _jsdtw(q, r, qlens, impl=impl, **kw, **out), f"{impl} {mode}")
+
+
+@pytest.mark.parametrize("spans", [False, True])
+def test_streamed_kernel_slice_loops_match_reference(spans, batch):
+    """The device-side slice loop and the host loop chain the kernel
+    carry exactly like the reference's host loop (chunk < M, ragged
+    tail)."""
+    q, r, qlens = batch
+    tq, tr, tl = map(torch.from_numpy, (q, r, qlens))
+    want = jengine._pallas_host_loop(jnp.asarray(q), jnp.asarray(r),
+                                     jnp.asarray(qlens), "abs_diff", 16,
+                                     return_positions=True,
+                                     return_spans=spans)
+    _equal(tengine._pallas_scan_streamed(
+        tq, tr, tl, "abs_diff", chunk=16, block_q=None, block_m=None,
+        return_positions=True, return_spans=spans), want)
+    _equal(tengine._pallas_host_loop(tq, tr, tl, "abs_diff", 16,
+                                     return_positions=True,
+                                     return_spans=spans), want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(top_k=3), dict(top_k=2, return_spans=True, excl_zone=3),
+    dict(top_k=2, excl_mode="span"),
+    dict(excl_lo=np.array([10, -1, 0, 40], np.int32),
+         excl_hi=np.array([30, -1, 8, 70], np.int32), return_spans=True),
+], ids=["topk", "topk_spans", "topk_span_mode", "exclusion"])
+def test_engine_topk_and_exclusion_match_reference(kw, batch):
+    q, r, qlens = batch
+    jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    _equal(_tsdtw(q, r, qlens, **kw), _jsdtw(q, r, qlens, **jkw), str(kw))
+
+
+def test_single_query_returns_scalar(batch):
+    q, r, _ = batch
+    got = _tsdtw(q[0], r, return_spans=True)
+    assert all(g.ndim == 0 for g in got)
+    _equal(got, _jsdtw(q[0], r, return_spans=True))
+
+
+def test_ragged_buckets_match_reference(rng):
+    lengths = [3, 17, 5, 40, 16, 1]
+    qs = [rng.integers(-30, 30, n).astype(np.int32) for n in lengths]
+    qs[1] = qs[1].astype(np.int16)
+    r = rng.integers(-30, 30, 90).astype(np.int32)
+    assert tengine.bucketize(lengths) == jengine.bucketize(lengths)
+    for blen, idxs in tengine.bucketize(lengths).items():
+        _equal(list(tengine.pad_ragged_bucket(qs, idxs, blen)),
+               list(jengine.pad_ragged_bucket(qs, idxs, blen)))
+    for kw in ({}, dict(return_spans=True), dict(top_k=2)):
+        _equal(_tsdtw(qs, r, **kw),
+               _jsdtw(qs, jnp.asarray(r), **kw), str(kw))
+    with pytest.raises(ValueError, match="empty"):
+        tengine.bucketize([3, 0])
+
+
+# ---------------------------------------------------------------------------
+# The request surface
+# ---------------------------------------------------------------------------
+
+_REJECTED = [
+    (dict(impl="vibes"), ValueError),
+    (dict(excl_lo=5), ValueError),
+    (dict(impl="rowscan", chunk=8), ValueError),
+    (dict(impl="wavefront", chunk=8), ValueError),
+    (dict(impl="rowscan", top_k=2), ValueError),
+    (dict(impl="pallas", top_k=2), ValueError),
+    (dict(top_k=0), ValueError),
+    (dict(excl_mode="span"), ValueError),
+    (dict(excl_mode="nope"), ValueError),
+    (dict(tune="fast"), ValueError),
+    (dict(impl="pallas", excl_lo=1, excl_hi=3), ValueError),
+    (dict(n_micro=2), ValueError),
+]
+
+
+@pytest.mark.parametrize("kw,exc", _REJECTED,
+                         ids=[str(k) for k, _ in _REJECTED])
+def test_validation_messages_match_reference(kw, exc):
+    q = np.zeros((2, 4), np.int32)
+    r = np.zeros(16, np.int32)
+    with pytest.raises(exc) as want:
+        jengine.sdtw(jnp.asarray(q), jnp.asarray(r), **kw)
+    with pytest.raises(exc) as got:
+        _tsdtw(q, r, **kw)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(mesh=object()), "item 12"), (dict(mesh_shape=(2,)), "item 12"),
+    (dict(impl="sharded"), "item 12"), (dict(op="search_topk"), "item 8"),
+    (dict(tune="model"), "item 11"), (dict(tune="measure"), "item 11"),
+    (dict(explain=True), "item 11"),
+])
+def test_unported_options_name_their_roadmap_item(kw, item):
+    req = SdtwRequest(queries=np.zeros((1, 4), np.int32),
+                      reference=np.zeros(8, np.int32), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match=item):
+        req.run()
+
+
+def test_request_equals_kwargs_and_rejects_unknown(batch):
+    q, r, qlens = batch
+    req = SdtwRequest.from_kwargs(queries=q, reference=r, qlens=qlens,
+                                  return_spans=True, device="cpu")
+    _equal(req.run(), _tsdtw(q, r, qlens, return_spans=True))
+    with pytest.raises(ValueError, match="unknown"):
+        SdtwRequest.from_kwargs(queries=q, refrence=r)
+
+
+# ---------------------------------------------------------------------------
+# matsa(mode="query_filtering")
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("metric", ["abs_diff", "square_diff"])
+def test_matsa_query_filtering_matches_reference(metric, rng):
+    q = rng.integers(-40, 40, (6, 10)).astype(np.int32)
+    r = rng.integers(-40, 40, 80).astype(np.int32)
+    sizes = np.array([10, 4, 7, 1, 9, 10])
+    want = jmatsa(r, q, query_sizes=sizes, dist_metric=metric)
+    thr = int(np.median(np.asarray(want.distances)))
+    want = jmatsa(r, q, query_sizes=sizes, dist_metric=metric,
+                  anomaly_threshold=thr)
+    got = tmatsa(r, q, query_sizes=sizes, dist_metric=metric,
+                 anomaly_threshold=thr, device="cpu")
+    _equal(got.distances, want.distances)
+    _equal(got.anomalies, want.anomalies)
+    assert got.window_starts is None and got.profile is None
+    plain = tmatsa(r, q[0], device="cpu")
+    assert plain.anomalies is None and plain.distances.shape == (1,)
+
+
+def test_matsa_synthetic_human_like_slice_matches_reference():
+    """A few queries of the Human shape from the same seed and generator."""
+    rng = np.random.default_rng(5)
+    ref = tmatsa_api.synthetic_timeseries(rng, 600)
+    q = np.stack([tmatsa_api.synthetic_timeseries(rng, 120)
+                  for _ in range(3)])
+    _equal(tmatsa(ref, q, device="cpu").distances, jmatsa(ref, q).distances)
+
+
+def test_matsa_errors():
+    r = np.zeros(32, np.int32)
+    for kw, match in ((dict(mode="nope"), "mode"),
+                      (dict(mode="self_join"), "window"),
+                      (dict(mode="query_filtering"), "queries")):
+        with pytest.raises(ValueError, match=match):
+            tmatsa(r, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tmatsa(r, mode="self_join", window=8, device="cpu")
+
+
+def test_workload_shapes_and_generator_match_reference():
+    assert (tmatsa_api.load_real_workload_shapes()
+            == jmatsa_api.load_real_workload_shapes())
+    for seed, size, dtype in ((5, 512, np.int32), (6, 64, np.float32)):
+        np.testing.assert_array_equal(
+            tmatsa_api.synthetic_timeseries(np.random.default_rng(seed),
+                                            size, dtype=dtype),
+            jmatsa_api.synthetic_timeseries(np.random.default_rng(seed),
+                                            size, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# The card is the default; the package stands alone
+# ---------------------------------------------------------------------------
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    q = np.zeros((1, 4), np.int32)
+    r = np.zeros(8, np.int32)
+    for call in (lambda: tmatsa(r, q), lambda: tengine.sdtw(q, r),
+                 lambda: SdtwRequest(queries=q, reference=r).run()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_import_pulls_in_no_jax_and_no_reference():
+    code = ("import sys, repro_torch, repro_torch.core.engine, "
+            "repro_torch.kernels.sdtw.ops, repro_torch.kernels.sdtw._build; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    src = str(pathlib.Path(__file__).parents[1] / "src")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": src})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
