@@ -9,32 +9,51 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
 (and so exits non-zero) on any failed check:
 
   1. card identity (``nvidia-smi`` name and power limit, CUDA name);
-  2. build every kernel from ``src/repro_torch/kernels/*/csrc`` with nvcc;
-  3. every kernel variant against its plain PyTorch version on the card:
-     int32 and float32, both metrics, plain / span / last-row, variable
-     query lengths, ``ref_lead``/``ref_len`` masks, carry chaining, block
-     policy invariance, N up to 1536 — int32 and integer-valued float32
-     bitwise, real-valued float32 within ``rtol=1e-5``;
+  2. build every kernel from ``src/repro_torch/kernels/*/csrc`` with nvcc,
+     all sources in parallel (timed; ptxas registers and spills logged);
+  3. both kernels (rows and wavefront), every variant, against their
+     plain PyTorch version on the card: int32 and float32, both metrics,
+     plain / span / last-row, variable query lengths, R not dividing N,
+     ``ref_lead``/``ref_len`` masks, carry chaining, block policy
+     invariance, N up to 1536, and N = 5000 on the wavefront kernel in
+     shared memory and in its global scratch — int32 and integer-valued
+     float32 bitwise, real-valued float32 within ``rtol=1e-5``;
   4. the main path at full size: ``matsa(mode="query_filtering")`` on the
      paper's Table V "Human" workload (131,072 int32 queries of length
      120 against 7,997 samples), checked against the numpy oracle on 8
      queries and against the plain version on 1,024, bitwise;
-  5. top-K matches through the last-row capture (the kernel's K3 variant
-     folded by ``topk_fold_lastrow``) on all Human queries;
+  5. top-K matches through the last-row capture (the K3 variant folded by
+     ``topk_fold_lastrow``) on all Human queries;
   6. a long reference: ``engine.sdtw(return_spans=True)`` at ECG's length
      (1,800,000 samples, queries of 512), 256 queries instead of 16,384;
-  7. every variant timed with CUDA events at both shapes, kernel and
-     plain version, beside its bound; then the JSON lines.
+  7. long queries (N = 5000, past the rows kernel): ``matsa()``, spans and
+     top-K through the last row, on the wavefront kernel, against the
+     plain version;
+  8. every variant of both kernels timed with CUDA events at the Human
+     and ECG-cut shapes beside its bound, the plain version once per
+     variant and shape on one batch (16,384 Human or 32 ECG-cut queries,
+     ``plain_queries`` in the JSON line); the rows kernel at Human with
+     ragged lengths (its generic harvest); both kernels, every variant,
+     at the other four Table V shapes cut to 4,224 queries (which is the
+     faster: ``kernel="auto"``'s routing), checked equal to each other;
+     then the JSON lines.
 
+Phases 4-6 run on the rows kernel (``kernel="auto"``), phase 7 on the
+wavefront kernel; each reads the launch counts set to 0 just before it.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on its path, its largest difference
 from the plain version, its time, the plain version's time and its bound.
+Phase 2 also logs each library's registers and spills (``-Xptxas -v``)
+and the static SASS instruction count of the main path's steady-state
+loops (``cuobjdump -sass``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -44,10 +63,16 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 #: INT32 lanes per SM on Hopper; the int32 rate is SMs × lanes × SM clock.
 INT32_LANES_PER_SM = 64
-#: int32 operations per DP cell of the recurrence the kernel evaluates:
-#: subtract, abs (or multiply), two mins, add, saturating min; the start
-#: lane adds two lexicographic mins of about four operations each.
-OPS_PER_CELL = {"plain": 6, "span": 14}
+#: int32 instructions the card needs per DP cell, as nvcc emits the
+#: cell in the rows kernel's steady-state loop (``cuobjdump -sass``; the
+#: counts phase 2 logs): plain, a subtract (IMAD.IADD), IABS (or IMAD for
+#: square_diff), VIMNMX3 (the three-way min) and VIADDMNMX (add, then
+#: the saturating min); with the start lane, the subtract, IABS, two
+#: lexicographic mins of three compares (ISETP) and two predicated moves
+#: each, and VIADDMNMX. The fused instructions are taken at the int32
+#: rate (their own rate is not measured; a lower one would raise the
+#: bound).
+OPS_PER_CELL = {"plain": 4, "span": 13}
 
 
 def log(*a):
@@ -62,6 +87,71 @@ def smi(query: str) -> str:
                          capture_output=True, text=True, timeout=60,
                          check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+#: Main-path instantiations whose steady-state loop phase 2 counts:
+#: (library, kernel name pattern in cuobjdump's listing, label, rows per
+#: loop iteration). Rows kernel: <T, TRACK, SQUARE, R>; wavefront:
+#: <T, TRACK, LASTROW, SQUARE, SCRATCH>, one row per thread per diagonal
+#: at Human and ECG (threads per query >= N).
+SASS_LOOPS = (
+    ("sdtw_rows", r"sdtw_rows_kernelIiLb0ELb0ELi4EE", "rows K1 R=4 (Human)",
+     4),
+    ("sdtw_rows", r"sdtw_rows_kernelIiLb1ELb0ELi4EE", "rows K2 R=4 (Human)",
+     4),
+    ("sdtw_rows", r"sdtw_rows_kernelIiLb0ELb0ELi16EE", "rows K1 R=16 (ECG)",
+     16),
+    ("sdtw_rows", r"sdtw_rows_kernelIiLb1ELb0ELi16EE", "rows K2 R=16 (ECG)",
+     16),
+    ("sdtw", r"sdtw_wavefront_kernelIiLb0ELb0ELb0ELb0EE", "wavefront K1", 1),
+    ("sdtw", r"sdtw_wavefront_kernelIiLb1ELb0ELb0ELb0EE", "wavefront K2", 1),
+)
+
+
+#: Opcodes of the DP cell's arithmetic that phase 2 counts in each loop
+#: (a prefix; "@" counts only predicated instructions): a plain cell has
+#: one IMAD.IADD (the subtract), IABS, VIMNMX3 and VIADDMNMX; a span cell
+#: no VIMNMX3 but six compares and four predicated moves (its two
+#: lexicographic mins). The loop's per-step instructions come on top.
+CELL_OPCODES = ("IMAD.IADD", "IABS", "VIMNMX3", "VIADDMNMX", "ISETP",
+                "@IMAD.MOV")
+
+
+def _count_opcode(loop, key: str) -> int:
+    pred = key.startswith("@")
+    return sum(1 for t in loop
+               if (not pred or t.startswith("@")) and re.sub(
+                   r"^@!?U?P\w+\s+", "", t).startswith(key.lstrip("@")))
+
+
+def sass_loops(sass: str, pattern: str):
+    """The loops of the first kernel in ``sass`` (``cuobjdump -sass``
+    text) whose name matches ``pattern``, one per predicated backward
+    branch: ``[(instructions, shuffles, barriers, selects, {opcode:
+    count for CELL_OPCODES})]``, largest first. Counts are static: every
+    instruction between the loop's head and its back edge, rarely taken
+    blocks included."""
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next(f for f in funcs[1:]
+                if re.search(pattern, f.split("\n", 1)[0]))
+    ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body)]
+    loops = []
+    for addr, text in ins:
+        m = re.match(r"@!?U?P\w+\s+BRA\s+(?:\S+,\s+)?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loop = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            loops.append((len(loop), sum("SHFL" in t for t in loop),
+                          sum("BAR.SYNC" in t for t in loop),
+                          _count_opcode(loop, "SEL "),
+                          {o: _count_opcode(loop, o) for o in CELL_OPCODES}))
+    return sorted(loops, key=lambda x: x[:4], reverse=True)
+
+
+def _flat(x):
+    if isinstance(x, (tuple, list)):
+        return [y for z in x for y in _flat(z)]
+    return [x]
 
 
 def cuda_ms(fn, reps: int = 3, warmup: bool = True) -> float:
@@ -103,8 +193,8 @@ class Harness:
 
     def kernel(self, q, r, qlens=None, metric="abs_diff", track=False,
                lastrow=False, carry=None, **kw):
-        """The kernel's outputs as the raw tuple (best, pos, start, bcol,
-        bstart, lastrow, lastrow_start)."""
+        """The kernel's outputs (``kernel=`` in ``kw`` picks it) as the raw
+        tuple (best, pos, start, bcol, bstart, lastrow, lastrow_start)."""
         out = self.ops.sdtw_cuda(q, r, qlens, metric, carry=carry,
                                  return_carry=True, return_spans=track,
                                  return_positions=not track,
@@ -149,19 +239,29 @@ class Harness:
         return worst
 
     def check(self, name, q, r, qlens=None, metric="abs_diff", track=False,
-              lastrow=False, exact=True, **kw):
-        got = self.kernel(q, r, qlens, metric, track, lastrow, **kw)
+              lastrow=False, exact=True, configs=None, **kw):
+        """Every kernel configuration (``(kernel, launch kwargs)`` pairs;
+        default both kernels with the default policy) against one run of
+        the plain version. Returns the number of comparisons."""
+        configs = configs or [(k, {}) for k in self.ops.KERNELS]
         want = self.plain_raw(q, r, qlens, metric, track, lastrow, **kw)
-        worst = self.compare(name, got, want, exact)
-        var = self.ops.variant(track, lastrow)
+        for kernel, launch in configs:
+            got = self.kernel(q, r, qlens, metric, track, lastrow,
+                              kernel=kernel, **launch, **kw)
+            self.record(self.ops.variant(track, lastrow, kernel),
+                        self.compare(f"{kernel} {launch} {name}", got, want,
+                                     exact))
+        return len(configs)
+
+    def record(self, var, worst):
         self.err[var] = max(self.err[var], worst)
-        return got
 
 
 def phase_kernels(h, np, rng):
-    """Phase 3: every variant against the plain version."""
+    """Phase 3: every variant of both kernels against the plain version,
+    which runs once per input."""
     n_checks = 0
-    shapes = [(3, 5, 17), (16, 120, 1000), (4, 512, 3000)]
+    shapes = [(3, 5, 17), (16, 120, 1000), (5, 200, 900), (4, 512, 3000)]
     modes = [(False, False), (True, False), (False, True), (True, True)]
     for dtype in (np.int32, np.float32):
         for metric in ("abs_diff", "square_diff"):
@@ -171,54 +271,98 @@ def phase_kernels(h, np, rng):
                     r = rng.integers(-60, 60, m).astype(dtype)
                     qlens = rng.integers(1, n + 1, b).astype(np.int32)
                     qlens[0] = n
-                    h.check(f"{dtype.__name__} {metric} {(b, n, m)} "
-                            f"track={track} lastrow={lastrow}", q, r, qlens,
-                            metric, track, lastrow, ref_offset=7)
-                    n_checks += 1
+                    n_checks += h.check(
+                        f"{dtype.__name__} {metric} {(b, n, m)} "
+                        f"track={track} lastrow={lastrow}", q, r, qlens,
+                        metric, track, lastrow, ref_offset=7)
     q = rng.integers(-60, 60, (2, 1536)).astype(np.int32)
     r = rng.integers(-60, 60, 2500).astype(np.int32)
     for track, lastrow in modes:
-        h.check(f"N=1536 track={track} lastrow={lastrow}", q, r, None,
-                "abs_diff", track, lastrow)
-        n_checks += 1
+        n_checks += h.check(f"N=1536 track={track} lastrow={lastrow}", q, r,
+                            None, "abs_diff", track, lastrow)
+    # The rows kernel at every R (the policy picks R at N = 32·R - 3, which
+    # R does not divide for R > 1), with a query ending on a lane's last
+    # slot, one elsewhere and one with no last row.
+    for rows in h.ops.ROWS_PER_LANE:
+        n = 32 * rows - 3
+        q = rng.integers(-60, 60, (4, n)).astype(np.int32)
+        r = rng.integers(-60, 60, 700).astype(np.int32)
+        for track, lastrow in modes:
+            n_checks += h.check(
+                f"R={rows} N={n} track={track} lastrow={lastrow}", q, r,
+                np.array([n, rows, n - 1, 0], np.int32), "abs_diff", track,
+                lastrow, configs=[("rows", {})])
+    # N = 5000 on the wavefront kernel: shared memory, then global scratch.
+    q = rng.integers(-60, 60, (3, 5000)).astype(np.int32)
+    r = rng.integers(-60, 60, 600).astype(np.int32)
+    for track, lastrow in modes:
+        n_checks += h.check(
+            f"N=5000 track={track} lastrow={lastrow}", q, r,
+            np.array([5000, 4321, 1], np.int32), "abs_diff", track, lastrow,
+            configs=[("wavefront", {}), ("wavefront", dict(block_q=2))])
     q = rng.integers(-60, 60, (6, 40)).astype(np.int32)
     r = rng.integers(-60, 60, 900).astype(np.int32)
     for lead, rlen in ((0, 500), (13, 900), (30, 30), (0, 0), (100, 640)):
         for track, lastrow in modes:
-            h.check(f"lead={lead} len={rlen}", q, r,
-                    np.array([40, 1, 17, 33, 2, 40], np.int32), "abs_diff",
-                    track, lastrow, ref_offset=1000, ref_lead=lead,
-                    ref_len=rlen)
-            n_checks += 1
+            n_checks += h.check(
+                f"lead={lead} len={rlen}", q, r,
+                np.array([40, 1, 17, 33, 2, 40], np.int32), "abs_diff",
+                track, lastrow, ref_offset=1000, ref_lead=lead, ref_len=rlen)
     qf = rng.normal(0, 50, (8, 64)).astype(np.float32)
     rf = rng.normal(0, 50, 2000).astype(np.float32)
-    h.check("float32 real-valued (rtol=1e-5)", qf, rf, exact=False)
-    n_checks += 1
+    n_checks += h.check("float32 real-valued (rtol=1e-5)", qf, rf,
+                        exact=False)
 
     # Carry chaining: three slices through the carry == one launch.
     q = rng.integers(-60, 60, (9, 120)).astype(np.int32)
     r = rng.integers(-60, 60, 2000).astype(np.int32)
-    for track in (False, True):
-        whole = h.kernel(q, r, track=track)
-        carry = None
-        for off in range(0, 2000, 700):
-            sl = np.zeros(700, np.int32)
-            cl = min(700, 2000 - off)
-            sl[:cl] = r[off:off + cl]
-            _, carry = h.ops.sdtw_cuda(q, sl, carry=carry, ref_offset=off,
-                                       ref_len=cl, return_carry=True,
-                                       track_start=track, device=h.dev)
-        chained = ((carry[2], carry[3], carry[4], carry[0], carry[1])
-                   if track else (carry[1], carry[2], None, carry[0], None))
-        h.compare(f"carry chaining track={track}", chained, whole[:5])
-        n_checks += 1
-    # Block-policy invariance.
-    base = h.kernel(q, r, track=True)
-    for bq, bm in ((1, 16), (3, 64), (8, 1024)):
-        h.compare(f"block_q={bq} block_m={bm}", h.kernel(
-            q, r, track=True, block_q=bq, block_m=bm), base)
+    for kernel in h.ops.KERNELS:
+        for track in (False, True):
+            whole = h.kernel(q, r, track=track, kernel=kernel)
+            carry = None
+            for off in range(0, 2000, 700):
+                sl = np.zeros(700, np.int32)
+                cl = min(700, 2000 - off)
+                sl[:cl] = r[off:off + cl]
+                _, carry = h.ops.sdtw_cuda(q, sl, carry=carry, ref_offset=off,
+                                           ref_len=cl, return_carry=True,
+                                           track_start=track, device=h.dev,
+                                           kernel=kernel)
+            chained = ((carry[2], carry[3], carry[4], carry[0], carry[1])
+                       if track else (carry[1], carry[2], None, carry[0],
+                                      None))
+            h.compare(f"{kernel} carry chaining track={track}", chained,
+                      whole[:5])
+            n_checks += 1
+    # Block-policy invariance, and the two kernels agree.
+    base = h.kernel(q, r, track=True, kernel="wavefront")
+    for kernel, launch in (("wavefront", dict(block_q=1, block_m=16)),
+                           ("wavefront", dict(block_q=3, block_m=64)),
+                           ("wavefront", dict(block_q=8, block_m=1024)),
+                           ("rows", {}), ("rows", dict(block_q=1)),
+                           ("rows", dict(block_q=8))):
+        h.compare(f"{kernel} {launch}", h.kernel(
+            q, r, track=True, kernel=kernel, **launch), base)
         n_checks += 1
     return n_checks
+
+
+def ptxas_summary(log_text: str):
+    """``{kernel name: (registers, spill stores, spill loads)}`` from
+    nvcc's ``-Xptxas -v`` output."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = [0, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    return out
 
 
 def main() -> int:
@@ -253,11 +397,11 @@ def main() -> int:
     # Phase 1: the card.
     card = smi("name,power.limit")
     log(card)
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     sm_mhz = float(smi("clocks.max.sm"))
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     int32_rate = n_sm * INT32_LANES_PER_SM * sm_mhz * 1e6
-    log(f"device: {name}; {n_sm} SMs at up to {sm_mhz:.0f} MHz; int32 peak "
+    log(f"device: {kind}; {n_sm} SMs at up to {sm_mhz:.0f} MHz; int32 peak "
         f"{int32_rate / 1e12:.3f} Tops/s; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
 
@@ -265,9 +409,37 @@ def main() -> int:
     t0 = time.time()
     libs = _build.build()
     log(f"build: {sorted(libs)} in {time.time() - t0:.1f} s")
-    for line in _build.build_log("sdtw").splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    ptxas = {}
+    for lib in sorted(libs):
+        summary = ptxas_summary(_build.build_log(lib))
+        ptxas.update(summary)
+        regs = [v[0] for v in summary.values()]
+        log(f"  ptxas {lib}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+            f"registers")
+    for k, (reg, st, ld) in sorted(ptxas.items()):
+        if st or ld:
+            short = re.search(r"sdtw_(rows|wavefront)_kernel\w+?EE", k)
+            log(f"  ptxas spill: {short.group(0) if short else k}: {reg} "
+                f"registers, {st} bytes spill stores, {ld} bytes spill "
+                f"loads")
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = {lib: subprocess.run([cuobjdump, "-sass", str(path)],
+                                capture_output=True, text=True, timeout=300,
+                                check=True).stdout
+            for lib, path in libs.items()}
+    for lib, pattern, label, rows in SASS_LOOPS:
+        # The rows kernel's two sweeps: the generic harvest is the one
+        # with the unrolled select (more SELs) of the harvest slot.
+        sweep = sorted((loop for loop in sass_loops(sass[lib], pattern)
+                        if loop[1] or loop[2]), key=lambda x: x[3])
+        names = (["fixed", "generic"] if len(sweep) == 2
+                 else ["sweep"] * len(sweep))
+        reg = next(v[0] for k, v in ptxas.items() if re.search(pattern, k))
+        loops = "; ".join(
+            f"{name} {x[0]} static instructions ({x[0] / rows:.2f} per "
+            f"cell), cell arithmetic {x[4]}" for name, x in zip(names, sweep))
+        log(f"  sass {label}: {reg} registers; steady-state loops {loops}")
+    del sass
 
     # Phase 3: kernels against their plain versions.
     rng = np.random.default_rng(args.seed)
@@ -291,7 +463,7 @@ def main() -> int:
     torch.cuda.synchronize()
     e2e_first_s = time.time() - t0
     human_launches = dict(ops.LAUNCHES)
-    if human_launches["sdtw_plain"] < 1:
+    if human_launches["rows_plain"] < 1:
         raise AssertionError(f"matsa() did not launch the kernel: "
                              f"{human_launches}")
     d = res.distances
@@ -306,8 +478,8 @@ def main() -> int:
             raise AssertionError(f"query {i}: {int(d[i])} != oracle {want}")
     sub = slice(0, 1024)
     want = h.plain_raw(queries[sub], reference)[0]
-    h.err["sdtw_plain"] = max(h.err["sdtw_plain"], h.compare(
-        "Human 1024 queries vs plain", (d[sub],), (want,)))
+    h.record("rows_plain", h.compare("Human 1024 queries vs plain",
+                                     (d[sub],), (want,)))
     thr = float(torch.quantile(d.double(), 0.99))
     res_thr = matsa(reference, queries, anomaly_threshold=thr)
     n_anom = int(res_thr.anomalies.sum())
@@ -334,7 +506,7 @@ def main() -> int:
                              0, k, zone)
     torch.cuda.synchronize()
     topk_launches = dict(ops.LAUNCHES)
-    if topk_launches["sdtw_lastrow"] < 1:
+    if topk_launches["rows_lastrow"] < 1:
         raise AssertionError(f"top-K path missed the kernel: {topk_launches}")
     del lrow, lstart
     want = sdtw_chunked(qt[:64], rt, None, "abs_diff", chunk=8192, top_k=k,
@@ -343,8 +515,8 @@ def main() -> int:
               (heap[0][:64], heap[2][:64], heap[1][:64]), want)
     raw_k = h.kernel(qt[:1024], rt, track=True, lastrow=True)
     raw_p = h.plain_raw(qt[:1024], rt, track=True, lastrow=True)
-    h.err["sdtw_lastrow"] = max(h.err["sdtw_lastrow"], h.compare(
-        "Human 1024 lastrow vs plain", raw_k, raw_p))
+    h.record("rows_lastrow", h.compare("Human 1024 lastrow vs plain", raw_k,
+                                       raw_p))
     del heap, raw_k, raw_p
     log(f"phase 5: top-{k} of {nq} Human queries via the last-row capture; "
         f"== chunked top-K on 64 queries, kernel == plain on 1024; launches "
@@ -363,35 +535,124 @@ def main() -> int:
     de, se, ee = engine.sdtw(qe, re_, return_spans=True)
     torch.cuda.synchronize()
     ecg_launches = dict(ops.LAUNCHES)
-    if ecg_launches["sdtw_span"] < 1:
+    if ecg_launches["rows_span"] < 1:
         raise AssertionError(f"ECG path missed the kernel: {ecg_launches}")
     raw_p = h.plain_raw(qe[:4], re_, track=True)
-    h.err["sdtw_span"] = max(h.err["sdtw_span"], h.compare(
-        "ECG 4 queries vs plain", (de[:4], ee[:4], se[:4]), raw_p[:3]))
+    h.record("rows_span", h.compare("ECG 4 queries vs plain",
+                                    (de[:4], ee[:4], se[:4]), raw_p[:3]))
     if not bool(((de >= 0) & (de < 2**29)).all()):
         raise AssertionError("ECG distances outside [0, INT_BIG)")
     ecg_ms = cuda_ms(lambda: engine.sdtw(qe, re_, return_spans=True), reps=2)
     log(f"phase 6: engine.sdtw(spans) {ecg_ms:.3f} ms end to end, launches "
         f"{ecg_launches}; plain version agrees on 4 queries")
 
-    # Phase 7: every variant, kernel and plain version, at both shapes.
-    variants = (("sdtw_plain", False, False), ("sdtw_span", True, False),
-                ("sdtw_lastrow", True, True))
+    # Phase 7: long queries, past the rows kernel — the wavefront kernel.
+    nl, ml, bl = 5000, 4000, 8
+    ref_l = synthetic_timeseries(rng, ml)
+    q_l = synthetic_timeseries(rng, bl * nl).reshape(bl, nl)
+    ql, rl = (torch.as_tensor(q_l, device=dev),
+              torch.as_tensor(ref_l, device=dev))
+    long_launches = {}
+    ops.reset_launches()
+    dl = matsa(ref_l, q_l).distances
+    torch.cuda.synchronize()
+    long_launches["wavefront_plain"] = ops.LAUNCHES["wavefront_plain"]
+    h.record("wavefront_plain", h.compare(
+        f"long queries N={nl} matsa vs plain", (dl,),
+        h.plain_raw(ql, rl)[:1]))
+    ops.reset_launches()
+    dls, sls, els = engine.sdtw(ql, rl, return_spans=True)
+    torch.cuda.synchronize()
+    long_launches["wavefront_span"] = ops.LAUNCHES["wavefront_span"]
+    h.record("wavefront_span", h.compare(
+        f"long queries N={nl} spans vs plain", (dls, els, sls),
+        h.plain_raw(ql, rl, track=True)[:3]))
+    ops.reset_launches()
+    _, lrow, lstart = ops.sdtw_cuda(ql, rl, return_spans=True,
+                                    return_lastrow=True, device=dev)
+    heap = topk_fold_lastrow(topk_init(bl, k, torch.int32, dev), lrow, lstart,
+                             0, k, default_excl_zone(torch.full(
+                                 (bl,), nl, dtype=torch.int32, device=dev)))
+    torch.cuda.synchronize()
+    long_launches["wavefront_lastrow"] = ops.LAUNCHES["wavefront_lastrow"]
+    raw_p = h.plain_raw(ql, rl, track=True, lastrow=True)
+    h.record("wavefront_lastrow", h.compare(
+        f"long queries N={nl} last row vs plain", (lrow, lstart), raw_p[5:]))
+    if min(long_launches.values()) < 1 or any(
+            v for key, v in ops.LAUNCHES.items() if key.startswith("rows")):
+        raise AssertionError(f"long queries missed the wavefront kernel: "
+                             f"{long_launches}")
+    del heap, lrow, lstart
+    log(f"phase 7: N={nl}, {bl} queries against {ml}: matsa, spans and "
+        f"top-{k} via the last row on the wavefront kernel == plain; "
+        f"launches {long_launches}")
+
+    # Phase 8: every variant of both kernels at both shapes; the plain
+    # version once per variant and shape (both kernels share it), on one
+    # batch of the queries (its time grows with the batch).
+    variants = (("plain", False, False), ("span", True, False),
+                ("lastrow", True, True))
     shapes = {"Human": (qt, rt, 16384), "ECG-cut": (qe, re_, 32)}
-    times = {}
+    times, plain_times = {}, {}
     for var, track, lastrow in variants:
         for shape, (qq, rr, batch) in shapes.items():
-            k_ms = cuda_ms(lambda: ops.sdtw_cuda(
-                qq, rr, return_spans=track, return_lastrow=lastrow,
-                device=dev), reps=2 if shape == "ECG-cut" else 3)
-            p_ms = cuda_ms(lambda: [
-                h.plain_raw(qq[s:s + batch], rr, track=track, lastrow=lastrow)
-                for s in range(0, qq.shape[0], batch)], reps=1, warmup=False)
             cells_ = qq.shape[0] * qq.shape[1] * rr.shape[0]
-            times[var, shape] = (k_ms, p_ms)
-            log(f"timing {var} at {shape}: kernel {k_ms:.3f} ms "
-                f"({cells_ / (k_ms / 1e3):.4g} cells/s), plain version "
-                f"{p_ms:.3f} ms")
+            for kernel in ops.KERNELS:
+                k_ms = cuda_ms(lambda: ops.sdtw_cuda(
+                    qq, rr, return_spans=track, return_lastrow=lastrow,
+                    device=dev, kernel=kernel),
+                    reps=2 if shape == "ECG-cut" else 3)
+                times[f"{kernel}_{var}", shape] = k_ms
+                log(f"timing {kernel}_{var} at {shape}: kernel {k_ms:.3f} "
+                    f"ms ({cells_ / (k_ms / 1e3):.4g} cells/s)")
+            p_ms = cuda_ms(lambda: h.plain_raw(qq[:batch], rr, track=track,
+                                               lastrow=lastrow),
+                           reps=1, warmup=False)
+            plain_times[var, shape] = p_ms
+            log(f"timing plain version {var} at {shape}: {p_ms:.3f} ms for "
+                f"one batch of {batch} of the {qq.shape[0]} queries")
+
+    # Ragged lengths: Human K1 with every query one row shorter, so that
+    # its last row is not a lane's last slot, beside full lengths.
+    harvest = {"qlen = N": None,
+               "qlen = N - 1": torch.full((nq,), n - 1, dtype=torch.int32,
+                                          device=dev)}
+    harvest_ms = {key: [] for key in harvest}
+    for _ in range(2):
+        for key, lens in harvest.items():
+            harvest_ms[key].append(cuda_ms(lambda: ops.sdtw_cuda(
+                qt, rt, lens, device=dev, kernel="rows")))
+    log(f"timing rows_plain at Human by query length (runs alternated): "
+        f"{harvest_ms}")
+
+    # The other Table V shapes, cut to 4,224 queries (32 warps on each of
+    # 132 SMs) and a reference of at most 8e10 cells (at least 20 N
+    # samples, and at most 6.4e8 last-row entries): which kernel is the
+    # faster in each variant (``choose_kernel``); the two agree bitwise.
+    for shape in ("Song", "Penguin", "Seismology", "Power"):
+        w = load_real_workload_shapes()[shape]
+        n_, b_ = w["query_size"], min(w["num_queries"], 4224)
+        m_ = min(w["ref_size"], max(20 * n_, int(8e10) // (b_ * n_)),
+                 int(6.4e8) // b_)
+        qq = torch.as_tensor(synthetic_timeseries(rng, b_ * n_).reshape(
+            b_, n_), device=dev)
+        rr = torch.as_tensor(synthetic_timeseries(rng, m_), device=dev)
+        for var, track, lastrow in variants:
+            out, ms = {}, {}
+            for kernel in ops.KERNELS:
+                def run(kernel=kernel):
+                    out[kernel] = _flat(ops.sdtw_cuda(
+                        qq, rr, return_spans=track, return_positions=True,
+                        return_lastrow=lastrow, device=dev, kernel=kernel))
+                ms[kernel] = cuda_ms(run, reps=2)
+            h.compare(f"{shape} {var} rows vs wavefront", out["rows"],
+                      out["wavefront"])
+            del out
+            log(f"timing {var} at {shape} cut ({b_}x{n_} vs {m_}, R="
+                f"{ops.resolve_rows(b_, n_, sms=n_sm)[1]}): rows "
+                f"{ms['rows']:.3f} ms, wavefront {ms['wavefront']:.3f} ms; "
+                f"rows/wavefront {ms['rows'] / ms['wavefront']:.3f}")
+        del qq, rr
 
     def bound(b_, n_, m_, track, lastrow):
         acc = 4
@@ -408,26 +669,36 @@ def main() -> int:
     for var, track, lastrow in variants:
         for shape in shapes:
             b_ms, b_by = bound(*dims[shape], track, lastrow)
-            log(f"bound {var} at {shape}: {b_ms:.3f} ms ({b_by}); the "
-                f"kernel takes {times[var, shape][0] / b_ms:.2f}x it")
+            log(f"bound {var} at {shape}: {b_ms:.3f} ms ({b_by}); rows "
+                f"{times['rows_' + var, shape] / b_ms:.2f}x, wavefront "
+                f"{times['wavefront_' + var, shape] / b_ms:.2f}x it")
     rows = []
-    src_file = "src/repro_torch/kernels/sdtw/csrc/sdtw.cu"
-    # Each kernel's numbers at the shape of the path that launched it.
-    for (var, track, lastrow), launches, shape in zip(
-            variants, (human_launches["sdtw_plain"], ecg_launches["sdtw_span"],
-                       topk_launches["sdtw_lastrow"]),
-            ("Human", "ECG-cut", "Human")):
-        b_ms, b_by = bound(*dims[shape], track, lastrow)
-        rows.append({"name": var, "route": "cuda", "source": src_file,
-                     "replaces": "src/repro/kernels/sdtw/ops.py:140",
-                     "launches": launches, "max_abs_err": h.err[var],
-                     "ms": times[var, shape][0],
-                     "plain_ms": times[var, shape][1], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None, "shape": shape})
+    src = {"rows": "src/repro_torch/kernels/sdtw/csrc/sdtw_rows.cu",
+           "wavefront": "src/repro_torch/kernels/sdtw/csrc/sdtw.cu"}
+    # Launches on the path that runs the kernel (phases 4-7); times at the
+    # Table V shape of the path that runs the variant at full width.
+    path_launches = {"rows_plain": human_launches["rows_plain"],
+                     "rows_span": ecg_launches["rows_span"],
+                     "rows_lastrow": topk_launches["rows_lastrow"],
+                     **long_launches}
+    for kernel in ops.KERNELS:
+        for (var, track, lastrow), shape in zip(
+                variants, ("Human", "ECG-cut", "Human")):
+            key = f"{kernel}_{var}"
+            b_ms, b_by = bound(*dims[shape], track, lastrow)
+            rows.append({"name": key, "route": "cuda", "source": src[kernel],
+                         "replaces": "src/repro/kernels/sdtw/ops.py:140",
+                         "launches": path_launches[key],
+                         "max_abs_err": h.err[key],
+                         "ms": times[key, shape],
+                         "plain_ms": plain_times[var, shape],
+                         "plain_queries": shapes[shape][2],
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None, "shape": shape})
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -35,7 +35,11 @@
 // The query sits in shared memory; reference samples are staged through a
 // shared ring of `ring` >= N + tile samples, `tile` at a time, loaded
 // during the last diagonal of the previous tile so the per-diagonal
-// barrier orders them.
+// barrier orders them. When a block's query rows and diagonals do not fit
+// in shared memory (long queries), they live in a global scratch the
+// wrapper allocates, one region per block, and the reference is read from
+// device memory directly (ring = 0); __syncthreads() orders those global
+// accesses within the block just the same.
 //
 // What bounds it on this card: int32 ALU operations. Each cell costs a
 // subtract, an abs (or a multiply), two mins, an add and a saturating min
@@ -122,10 +126,14 @@ struct Args {
   int* lastrow_start;     // (B, M)       last-row capture, span mode
   int B, N, M;
   int ref_offset, ref_len, ref_lead;
-  int block_q, tpq, tile, ring;
+  int block_q, tpq, tile, ring;   // ring == 0: no staging (global scratch)
+  void* scratch;                 // global scratch, or null: shared memory
+  size_t block_bytes;            // scratch bytes of one block
 };
 
-template <typename T, bool TRACK, bool LASTROW, bool SQUARE>
+// SCRATCH: the block's layout lives in the global scratch (a separate
+// instantiation, so the shared-memory one keeps its shared loads).
+template <typename T, bool TRACK, bool LASTROW, bool SQUARE, bool SCRATCH>
 __global__ void sdtw_wavefront_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int N = a.N, M = a.M;
@@ -135,15 +143,21 @@ __global__ void sdtw_wavefront_kernel(Args a) {
   const bool active = b < a.B;
   const T BIG = Acc<T>::big();
 
-  // Shared layout: reference ring, then per query slot: the query row and
+  // Block layout (shared memory, or this block's region of the global
+  // scratch): reference ring, then per query slot: the query row and
   // three diagonals of values (and of start lanes in span mode).
-  T* rs = reinterpret_cast<T*>(smem);
-  T* qs = rs + a.ring + static_cast<size_t>(slot) * 4 * N;
+  constexpr bool staged = !SCRATCH;
+  T* base = staged ? reinterpret_cast<T*>(smem)
+                   : reinterpret_cast<T*>(static_cast<unsigned char*>(
+                         a.scratch) + blockIdx.x * a.block_bytes);
+  const T* rs = staged ? base : static_cast<const T*>(a.r);
+  T* rring = base;                                  // staged mode only
+  T* qs = base + a.ring + static_cast<size_t>(slot) * 4 * N;
   T* dv = qs + N;                                   // dv[c * N + i]
-  int* ds = reinterpret_cast<int*>(rs + a.ring +
+  int* ds = reinterpret_cast<int*>(base + a.ring +
                                    static_cast<size_t>(a.block_q) * 4 * N) +
             static_cast<size_t>(slot) * 3 * N;     // span mode only
-  const int mask = a.ring - 1;
+  const int mask = staged ? a.ring - 1 : -1;
 
   const T* q = static_cast<const T*>(a.q);
   const T* r = static_cast<const T*>(a.r);
@@ -174,16 +188,16 @@ __global__ void sdtw_wavefront_kernel(Args a) {
   const int lr_row = hrow >= 0 ? hrow : 0;
   const bool lr_blank = hrow < 0;
 
-  for (int j = threadIdx.x; j < a.tile && j < M; j += blockDim.x)
-    rs[j & mask] = r[j];
+  for (int j = threadIdx.x; staged && j < a.tile && j < M; j += blockDim.x)
+    rring[j & mask] = r[j];
   __syncthreads();
 
   const int K = N + M - 1;
   for (int k = 0; k < K; ++k) {
-    if ((k + 1) % a.tile == 0) {                   // stage the next tile
+    if (staged && (k + 1) % a.tile == 0) {         // stage the next tile
       for (int j = k + 1 + threadIdx.x; j < k + 1 + a.tile && j < M;
            j += blockDim.x)
-        rs[j & mask] = r[j];
+        rring[j & mask] = r[j];
     }
     if (active) {
       T* cur = dv + (k % 3) * N;
@@ -271,7 +285,11 @@ __global__ void sdtw_wavefront_kernel(Args a) {
 
 template <typename T, bool TRACK, bool LASTROW, bool SQUARE>
 int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  auto kernel = sdtw_wavefront_kernel<T, TRACK, LASTROW, SQUARE>;
+  auto kernel = sdtw_wavefront_kernel<T, TRACK, LASTROW, SQUARE, false>;
+  if (a.scratch != nullptr) {
+    kernel = sdtw_wavefront_kernel<T, TRACK, LASTROW, SQUARE, true>;
+    smem = 0;
+  }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -299,9 +317,10 @@ int pick_mode(int track, int lastrow, int square, const Args& a, size_t smem,
                  : pick_metric<T, false, false>(square, a, smem, s);
 }
 
-// Shared memory bytes of one block: the reference ring, and per query the
+// Bytes of one block's layout: the reference ring, and per query the
 // query row and three diagonals (plus their start lanes in span mode).
-// ops.py::smem_bytes is the same formula, checked against the limit.
+// ops.py::smem_bytes is the same formula; the wrapper sizes the global
+// scratch with it (ring = 0) when it exceeds the shared-memory limit.
 size_t smem_bytes(int n, int block_q, int ring, int track) {
   return 4 * (static_cast<size_t>(ring) +
               static_cast<size_t>(block_q) * n * (track ? 7 : 4));
@@ -313,8 +332,10 @@ extern "C" {
 
 // Launches the wavefront kernel. is_float selects float32 (else int32)
 // accumulation, square the square_diff metric (else abs_diff), track the
-// start lane, lastrow the last-row capture. Pointers of disabled outputs
-// may be null. Returns the launch's cudaError_t (0 on success).
+// start lane, lastrow the last-row capture. scratch, when not null, holds
+// smem_bytes(N, block_q, 0, track) bytes for each block of the grid, and
+// ring is then ignored. Pointers of disabled outputs may be null. Returns
+// the launch's cudaError_t (0 on success).
 int sdtw_launch(int is_float, int square, int track, int lastrow,
                 const void* q, const void* r, const void* qlens,
                 const void* bcol_in, const void* bstart_in,
@@ -323,7 +344,7 @@ int sdtw_launch(int is_float, int square, int track, int lastrow,
                 void* start_out, void* bcol_out, void* bstart_out,
                 void* lastrow_out, void* lastrow_start, int B, int N, int M,
                 int ref_offset, int ref_len, int ref_lead, int block_q,
-                int tpq, int tile, int ring, void* stream) {
+                int tpq, int tile, int ring, void* scratch, void* stream) {
   if (B == 0) return 0;
   Args a;
   a.q = q;
@@ -350,8 +371,10 @@ int sdtw_launch(int is_float, int square, int track, int lastrow,
   a.block_q = block_q;
   a.tpq = tpq;
   a.tile = tile;
-  a.ring = ring;
-  const size_t smem = smem_bytes(N, block_q, ring, track);
+  a.scratch = scratch;
+  a.ring = scratch != nullptr ? 0 : ring;
+  a.block_bytes = smem_bytes(N, block_q, 0, track);
+  const size_t smem = smem_bytes(N, block_q, a.ring, track);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_float ? pick_mode<float>(track, lastrow, square, a, smem, s)
                   : pick_mode<int>(track, lastrow, square, a, smem, s);

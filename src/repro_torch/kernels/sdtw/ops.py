@@ -1,4 +1,4 @@
-"""Wrapper around the hand-written Hopper sDTW kernel.
+"""Wrapper around the hand-written Hopper sDTW kernels.
 
 ``sdtw_cuda`` is the port's counterpart of ``repro.kernels.sdtw.ops
 .sdtw_pallas``: the same arguments, return modes and return order
@@ -8,18 +8,30 @@ carry — ``(bcol (B, N), best (B,), pos (B,))``, or in span mode the
 of any length through fixed launches, and the ``ref_offset`` /
 ``ref_len`` / ``ref_lead`` slice masks.
 
-Dispatch: tensors on a CUDA device launch the kernel of ``csrc/sdtw.cu``
-(built at first use by ``_build``); tensors on the CPU run its plain
-PyTorch version (``sdtw.sdtw_kernel_plain``). There is no fallback: a
-CUDA call that cannot launch raises.
+Two kernels compute the same function (``kernel=``):
 
-Each launch adds one to ``LAUNCHES[variant]``, where the variant is
-``sdtw_plain`` (K1), ``sdtw_span`` (K2, start lane) or ``sdtw_lastrow``
-(K3, last-row capture, with or without the start lane).
+  * ``rows`` (``csrc/sdtw_rows.cu``): one warp per query, ``R`` rows per
+    lane in registers, a skewed sweep with no shared memory and no
+    barrier; queries of up to ``ROWS_MAX_N`` samples;
+  * ``wavefront`` (``csrc/sdtw.cu``): one block per ``block_q`` queries
+    walking the anti-diagonals through shared memory, or through a global
+    scratch when a block's rows do not fit there; any N.
+
+``kernel="auto"`` takes the rows kernel up to ``ROWS_MAX_N`` and the
+wavefront kernel beyond (``choose_kernel``). Dispatch: tensors on a CUDA
+device launch the chosen kernel (built at first use by ``_build``);
+tensors on the CPU run the plain PyTorch version of both
+(``sdtw.sdtw_kernel_plain``). There is no fallback: a CUDA call that
+cannot launch raises.
+
+Each launch adds one to ``LAUNCHES["<kernel>_<variant>"]``, where the
+variant is ``plain`` (K1), ``span`` (K2, start lane) or ``lastrow`` (K3,
+last-row capture, with or without the start lane).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -30,19 +42,30 @@ from repro_torch.device import as_tensor, resolve_device
 from . import _build
 from .sdtw import sdtw_kernel_plain
 
-#: Threads a block aims for: queries of up to 512 rows share a block.
+KERNELS = ("rows", "wavefront")
+#: Rows per lane the rows kernel is built for (``pick_rows`` in
+#: ``csrc/sdtw_rows.cu``): a warp covers up to 32·R query rows.
+ROWS_PER_LANE = (1, 2, 4, 7, 8, 16, 25, 32, 48)
+#: Longest query the rows kernel takes.
+ROWS_MAX_N = 32 * ROWS_PER_LANE[-1]
+#: Warps (queries) per block of the rows kernel: the default and the most.
+ROWS_WARPS = 4
+ROWS_MAX_WARPS = 8
+#: Threads a wavefront block aims for: queries of up to 512 rows share it.
 BLOCK_THREADS = 512
 #: Reference samples staged into shared memory per tile.
 DEFAULT_TILE = 256
-#: Largest query length the kernel takes. Its shared memory grows with N
-#: (4·N bytes for the query and 12·N for three diagonals, 12·N more for
-#: their start lanes in span mode, plus the reference ring); N = 4096 in
-#: span mode needs 147,456 of the block's 232,448 bytes.
-MAX_N = 4096
-#: Dynamic shared memory one block can have on Hopper.
+#: Dynamic shared memory one block can have on Hopper. A wavefront block
+#: needs 4·N bytes for the query and 12·N for three diagonals (12·N more
+#: for their start lanes in span mode), plus the reference ring; past
+#: this the rows and diagonals move to a global scratch.
 SMEM_LIMIT = 232_448
+#: Most global scratch one wavefront launch allocates; longer batches
+#: launch in slices.
+SCRATCH_LIMIT = 1 << 30
 
-LAUNCHES = {"sdtw_plain": 0, "sdtw_span": 0, "sdtw_lastrow": 0}
+LAUNCHES = {f"{k}_{v}": 0 for k in KERNELS
+            for v in ("plain", "span", "lastrow")}
 
 
 def reset_launches():
@@ -51,11 +74,59 @@ def reset_launches():
         LAUNCHES[key] = 0
 
 
-def variant(track: bool, lastrow: bool) -> str:
-    """The kernel variant (``LAUNCHES`` key) a call launches."""
+def variant(track: bool, lastrow: bool, kernel: str) -> str:
+    """The ``LAUNCHES`` key of a launch of ``kernel`` in this mode."""
     if lastrow:
-        return "sdtw_lastrow"
-    return "sdtw_span" if track else "sdtw_plain"
+        return f"{kernel}_lastrow"
+    return f"{kernel}_span" if track else f"{kernel}_plain"
+
+
+def choose_kernel(n: int, kernel: str = "auto") -> str:
+    """The kernel a (·, n) batch runs on: ``kernel`` itself when forced,
+    else the rows kernel up to ``ROWS_MAX_N`` and the wavefront beyond.
+    Raises ``ValueError`` for an unknown name or a query too long for the
+    rows kernel."""
+    if kernel == "auto":
+        return "rows" if n <= ROWS_MAX_N else "wavefront"
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be 'auto' or one of {KERNELS}, got "
+                         f"{kernel!r}")
+    if kernel == "rows" and n > ROWS_MAX_N:
+        raise ValueError(f"the rows kernel takes queries of up to "
+                         f"{ROWS_MAX_N} samples, got N={n}")
+    return kernel
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def resolve_rows(b: int, n: int, block_q=None, *, sms: int):
+    """The rows kernel's launch policy for a (b, n) batch on a card of
+    ``sms`` SMs.
+
+    Returns ``(warps, rows)``: queries (warps) per block and R, the rows
+    per lane: the smallest R of ``ROWS_PER_LANE`` that covers n in 32
+    lanes and divides n with 32·R ≤ 1.15·n (so row n - 1 is a lane's last
+    slot and the harvest reads a fixed register), else the smallest that
+    covers n. ``block_q=None`` takes ``ROWS_WARPS`` warps per block, fewer
+    when b is small so the grid still covers the card's SMs.
+    Raises ``ValueError`` for a query or a block the kernel does not take.
+    """
+    n = max(int(n), 1)
+    cover = [r for r in ROWS_PER_LANE if 32 * r >= n]
+    if not cover:
+        raise ValueError(f"the rows kernel takes queries of up to "
+                         f"{ROWS_MAX_N} samples, got N={n}")
+    fit = [r for r in cover if n % r == 0 and 32 * r <= 1.15 * n]
+    if block_q is None:
+        block_q = max(1, min(ROWS_WARPS, b // sms))
+    if not 1 <= block_q <= ROWS_MAX_WARPS:
+        raise ValueError(f"the rows kernel takes 1 to {ROWS_MAX_WARPS} "
+                         f"queries per block, got block_q={block_q}")
+    return block_q, (fit or cover)[0]
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -67,27 +138,30 @@ def _pow2_at_least(x: int) -> int:
 
 
 def smem_bytes(n: int, block_q: int, ring: int, span: bool) -> int:
-    """Shared memory of one block (``smem_bytes`` in ``csrc/sdtw.cu``)."""
+    """Bytes of one wavefront block's layout (``smem_bytes`` in
+    ``csrc/sdtw.cu``): in shared memory, or with ``ring=0`` in the
+    global scratch."""
     return 4 * (ring + block_q * n * (7 if span else 4))
 
 
 def resolve_blocks(b: int, m: int, block_q=None, block_m=None, *, n: int,
                    span: bool = False):
-    """The Hopper launch policy for a (b, n) batch against m columns.
+    """The wavefront kernel's launch policy for a (b, n) batch against m
+    columns.
 
-    Returns ``(block_q, block_m, threads_per_query, ring)``: queries per
-    block, reference samples staged per tile, threads per query (rows
-    beyond it loop), and the shared reference ring (a power of two of at
-    least ``n + block_m`` samples). ``None`` picks the defaults: one warp
-    multiple of threads per query up to ``BLOCK_THREADS``, as many
-    queries per block as fill ``BLOCK_THREADS``, ``DEFAULT_TILE``.
+    Returns ``(block_q, block_m, threads_per_query, ring, scratch)``:
+    queries per block, reference samples staged per tile, threads per
+    query (rows beyond it loop), the shared reference ring (a power of two
+    of at least ``n + block_m`` samples), and whether the block's query
+    rows and diagonals live in a global scratch because they do not fit in
+    ``SMEM_LIMIT`` bytes of shared memory (the reference is then read from
+    device memory and the ring is unused). ``None`` picks the defaults:
+    one warp multiple of threads per query up to ``BLOCK_THREADS``, as
+    many queries per block as fill ``BLOCK_THREADS``, ``DEFAULT_TILE``.
     The reference's TPU knobs (``scan_scheme``, ``row_tile``,
-    ``interpret``) have no counterpart here. Raises ``ValueError`` when N
-    exceeds ``MAX_N`` or the block does not fit in shared memory.
+    ``interpret``) have no counterpart here. Raises ``ValueError`` for a
+    block shape the kernel does not take.
     """
-    if n > MAX_N:
-        raise ValueError(f"the CUDA sDTW kernel takes queries of up to "
-                         f"{MAX_N} samples, got N={n}")
     tpq = min(_ceil_to(max(n, 1), 32), BLOCK_THREADS)
     if block_q is None:
         block_q = max(1, min(BLOCK_THREADS // tpq, b))
@@ -97,12 +171,18 @@ def resolve_blocks(b: int, m: int, block_q=None, block_m=None, *, n: int,
         raise ValueError(f"invalid block shape block_q={block_q}, "
                          f"block_m={block_m} for N={n}")
     ring = _pow2_at_least(n + block_m)
-    need = smem_bytes(n, block_q, ring, span)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"block_q={block_q}, block_m={block_m} at N={n} "
-                         f"needs {need} bytes of shared memory; the limit "
-                         f"is {SMEM_LIMIT}")
-    return block_q, block_m, tpq, ring
+    scratch = smem_bytes(n, block_q, ring, span) > SMEM_LIMIT
+    return block_q, block_m, tpq, ring, scratch
+
+
+def scratch_batch(n: int, block_q: int, span: bool) -> int:
+    """Queries one wavefront launch with a global scratch takes: a
+    multiple of ``block_q`` whose scratch stays within ``SCRATCH_LIMIT``."""
+    per_block = smem_bytes(n, block_q, 0, span)
+    if per_block > SCRATCH_LIMIT:
+        raise ValueError(f"N={n} needs {per_block} bytes of scratch per "
+                         f"block; the limit is {SCRATCH_LIMIT}")
+    return SCRATCH_LIMIT // per_block * block_q
 
 
 def kernel_carry_init(b: int, n: int, dtype, track_start: bool = False,
@@ -138,26 +218,40 @@ def carry_to_numpy(carry):
     return tuple(x.detach().cpu().numpy() for x in carry)
 
 
-def _lib():
-    lib = _build.load("sdtw")
+def _lib(name: str):
+    """The loaded library of ``csrc/<name>.cu`` with its entry bound."""
+    lib = _build.load(name)
     if not getattr(lib, "_repro_bound", False):
-        lib.sdtw_launch.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 15
-                                    + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-        lib.sdtw_launch.restype = ctypes.c_int
+        i, p = ctypes.c_int, ctypes.c_void_p
+        if name == "sdtw":
+            lib.sdtw_launch.argtypes = [i] * 4 + [p] * 15 + [i] * 10 + [p] * 2
+            lib.sdtw_launch.restype = i
+        else:
+            lib.sdtw_rows_launch.argtypes = [i] * 3 + [p] * 15 + [i] * 8 + [p]
+            lib.sdtw_rows_launch.restype = i
         lib._repro_bound = True
     return lib
 
 
 def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
-                 ref_offset, rlen, ref_lead, want_lastrow, block_q, block_m):
-    """Allocate the outputs and launch the kernel on the current stream."""
+                 ref_offset, rlen, ref_lead, want_lastrow, block_q, block_m,
+                 kernel):
+    """Allocate the outputs and launch ``kernel`` (``"rows"`` or
+    ``"wavefront"``) on the current stream; the wavefront kernel in batch
+    slices when its global scratch would exceed ``SCRATCH_LIMIT``."""
     track = bstart is not None
     b, n = q.shape
     m = r.shape[0]
     acc = q.dtype
     dev = q.device
-    bq, tile, tpq, ring = resolve_blocks(b, m, block_q, block_m, n=n,
-                                         span=track)
+    if kernel == "rows":
+        if block_m is not None:
+            raise ValueError("block_m is the wavefront kernel's staged tile; "
+                             "the rows kernel stages none")
+        warps, rows = resolve_rows(b, n, block_q, sms=sm_count(dev.index))
+    else:
+        bq, tile, tpq, ring, scratch = resolve_blocks(b, m, block_q, block_m,
+                                                      n=n, span=track)
 
     def empty(shape, dtype, on=True):
         return torch.empty(shape, dtype=dtype, device=dev) if on else None
@@ -168,22 +262,40 @@ def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
             empty((b, m), torch.int32, want_lastrow and track))
     if b == 0:
         return outs
+    batched = (q, qlens, bcol, bstart, best, pos, start) + outs
+    flags = (int(acc.is_floating_point), int(metric == "square_diff"),
+             int(track))
+    scalars = (m, int(ref_offset), int(rlen), int(ref_lead))
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def ptrs(lo, hi):
+        p = [None if t is None else t[lo:hi].data_ptr() for t in batched]
+        return p[:1] + [r.data_ptr()] + p[1:]
 
     with torch.cuda.device(dev):
-        err = _lib().sdtw_launch(
-            int(acc.is_floating_point), int(metric == "square_diff"),
-            int(track), int(want_lastrow), ptr(q), ptr(r), ptr(qlens),
-            ptr(bcol), ptr(bstart), ptr(best), ptr(pos), ptr(start),
-            *[ptr(o) for o in outs], b, n, m, int(ref_offset), int(rlen),
-            int(ref_lead), bq, tpq, tile, ring,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sdtw CUDA kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[variant(track, want_lastrow)] += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kernel == "rows":
+            slices = [(0, b)]
+        else:
+            step = scratch_batch(n, bq, track) if scratch else b
+            slices = [(lo, min(b, lo + step)) for lo in range(0, b, step)]
+            blocks = -(-min(step, b) // bq)
+            buf = (torch.empty(blocks * smem_bytes(n, bq, 0, track),
+                               dtype=torch.uint8, device=dev)
+                   if scratch else None)
+        for lo, hi in slices:
+            if kernel == "rows":
+                err = _lib("sdtw_rows").sdtw_rows_launch(
+                    *flags, *ptrs(lo, hi), hi - lo, n, *scalars, rows,
+                    warps, stream)
+            else:
+                err = _lib("sdtw").sdtw_launch(
+                    *flags, int(want_lastrow), *ptrs(lo, hi), hi - lo, n,
+                    *scalars, bq, tpq, tile, ring,
+                    None if buf is None else buf.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"sdtw {kernel} CUDA kernel launch failed "
+                                   f"with CUDA error {err}")
+            LAUNCHES[variant(track, want_lastrow, kernel)] += 1
     return outs
 
 
@@ -192,19 +304,25 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
               carry=None, return_carry: bool = False, ref_offset=0,
               return_positions: bool = False, return_spans: bool = False,
               track_start: bool = False, ref_len=None, ref_lead=0,
-              return_lastrow: bool = False, device=None):
-    """Batched sDTW through the hand-written kernel: queries (B, N),
+              return_lastrow: bool = False, device=None,
+              kernel: str = "auto"):
+    """Batched sDTW through the hand-written kernels: queries (B, N),
     reference (M,) → (B,) distances.
 
     Inputs are moved to ``device`` (default the CUDA device; ``"cpu"``
-    runs the plain version). ``block_q``/``block_m`` override the launch
-    policy of ``resolve_blocks``. ``carry`` continues a previous call's
-    ``return_carry=True`` state (a 5-tuple selects span mode; a legacy
-    ``(bcol, best)`` pair seeds positions at -1). ``ref_offset`` is the
-    global column of ``reference[0]``, so reported positions are global;
-    only the first ``ref_len`` columns are real (the carry exits at
-    ``ref_len - 1``; ``ref_len <= 0`` passes the carry through); the first
-    ``ref_lead`` columns are masked (a fresh carry is assumed).
+    runs the plain version). ``kernel`` picks the CUDA kernel: ``"auto"``
+    (``choose_kernel``), ``"rows"`` or ``"wavefront"``; the CPU runs the
+    plain version whatever it says. ``block_q`` overrides the queries per
+    block of either kernel's policy (``resolve_rows``, ``resolve_blocks``),
+    ``block_m`` the wavefront's staged tile (a CUDA launch of the rows
+    kernel raises if it is given). ``carry`` continues a
+    previous call's ``return_carry=True`` state (a 5-tuple selects span
+    mode; a legacy ``(bcol, best)`` pair seeds positions at -1).
+    ``ref_offset`` is the global column of ``reference[0]``, so reported
+    positions are global; only the first ``ref_len`` columns are real (the
+    carry exits at ``ref_len - 1``; ``ref_len <= 0`` passes the carry
+    through); the first ``ref_lead`` columns are masked (a fresh carry is
+    assumed).
 
     Returns the distances, ``(dists, ends)`` with ``return_positions``, or
     ``(dists, starts, ends)`` with ``return_spans``; then the new carry
@@ -223,6 +341,7 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
                          f"{tuple(reference.shape)}")
     b, n = queries.shape
     m = reference.shape[0]
+    kernel = choose_kernel(n, kernel)
     if m == 0:
         raise ValueError("reference must be non-empty")
     rlen = m if ref_len is None else int(ref_len)
@@ -270,7 +389,7 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
     if dev.type == "cuda":
         outs = _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart,
                             start, ref_offset, rlen, ref_lead,
-                            return_lastrow, block_q, block_m)
+                            return_lastrow, block_q, block_m, kernel)
     else:
         outs = sdtw_kernel_plain(q, r, qlens, metric, bcol, best, pos,
                                  bstart, start, int(ref_offset), rlen,

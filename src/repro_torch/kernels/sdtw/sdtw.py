@@ -1,14 +1,15 @@
 """Plain PyTorch version of the sDTW kernel.
 
-``sdtw_kernel_plain`` computes exactly what the hand-written Hopper
-kernel (``csrc/sdtw.cu``) computes — the contract of the reference's
-Pallas kernel ``repro.kernels.sdtw.sdtw._sdtw_kernel`` under
-``sdtw_pallas`` — with stock tensor operations: a loop over the N query
-rows, each row solved over the whole reference by a (min,+) prefix scan
-(``repro_torch.core.sdtw.tropical_scan``). The CPU
-tests run it against the JAX package, and ``chip_smoke.py`` holds the
-CUDA kernel against it on the card. The ``sdtw_cuda`` wrapper runs it
-for tensors that lie on the CPU; nothing runs it for CUDA tensors.
+``sdtw_kernel_plain`` computes exactly what both hand-written Hopper
+kernels (``csrc/sdtw_rows.cu`` and ``csrc/sdtw.cu``) compute — the
+contract of the reference's Pallas kernel
+``repro.kernels.sdtw.sdtw._sdtw_kernel`` under ``sdtw_pallas`` — with
+stock tensor operations: a loop over the N query rows, each row solved
+over the whole reference by a (min,+) prefix scan
+(``repro_torch.core.sdtw.tropical_scan``). The CPU tests run it against
+the JAX package, and ``chip_smoke.py`` holds both CUDA kernels against it
+on the card. The ``sdtw_cuda`` wrapper runs it for tensors that lie on
+the CPU; nothing runs it for CUDA tensors.
 
 The contract, per query b with carry ``(bcol, best, pos[, bstart,
 start])`` and scalars ``ref_offset``, ``ref_len``, ``ref_lead``:
@@ -29,8 +30,8 @@ start])`` and scalars ``ref_offset``, ``ref_len``, ``ref_lead``:
     masked) and, in span mode, its start lane.
 
 int32 accumulation saturates against INT_BIG and is bitwise equal to the
-kernel's direct recurrence (saturating min-plus is exactly associative);
-float32 differs from the kernel only in summation order. One lane is
+kernels' direct recurrence (saturating min-plus is exactly associative);
+float32 differs from the kernels only in summation order. One lane is
 order-dependent: the start of a cell whose value saturates at BIG
 (unspecified in the reference too) may differ between the scan and the
 direct recurrence; masked columns are forced to INT_FAR in both.

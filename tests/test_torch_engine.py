@@ -251,6 +251,17 @@ def test_matsa_synthetic_human_like_slice_matches_reference():
     _equal(tmatsa(ref, q, device="cpu").distances, jmatsa(ref, q).distances)
 
 
+def test_matsa_long_queries_match_reference(rng):
+    """Queries longer than the rows kernel's 1536 samples (and than the
+    shared memory of a wavefront block): ``matsa()`` answers as the JAX
+    package does."""
+    ref = rng.integers(-50, 50, 80).astype(np.int32)
+    qs = rng.integers(-50, 50, (2, 5000)).astype(np.int32)
+    _equal(tmatsa(ref, qs, anomaly_threshold=9000, device="cpu").distances,
+           jmatsa(jnp.asarray(ref), jnp.asarray(qs),
+                  anomaly_threshold=9000).distances)
+
+
 def test_matsa_errors():
     r = np.zeros(32, np.int32)
     for kw, match in ((dict(mode="nope"), "mode"),

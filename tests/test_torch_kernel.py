@@ -6,8 +6,9 @@ mode, as ``tests/test_sdtw_kernel.py`` runs it. Same numpy inputs from a
 seed. Tolerances: int32 bitwise in every output (distances, positions,
 starts, carries, last rows); float32 bitwise on the integer-valued inputs
 used here (sums exact below 2**24), ``rtol=1e-5`` on distances for
-real-valued inputs. The CUDA kernel itself is held against the plain
-version on the card by ``tests/test_torch_kernel_cuda.py``.
+real-valued inputs. The CUDA kernels themselves are held against the
+plain version on the card by ``tests/test_torch_kernel_cuda.py``; here the
+launch policy that picks between them is checked.
 """
 import jax
 import jax.numpy as jnp
@@ -16,10 +17,14 @@ import pytest
 import torch
 
 from repro.kernels.sdtw import pallas_carry_init, sdtw_pallas
-from repro_torch.kernels.sdtw import (MAX_N, carry_from_numpy,
-                                      carry_to_numpy, kernel_carry_init,
-                                      resolve_blocks, sdtw_cuda,
+from repro_torch.core.matsa_api import load_real_workload_shapes
+from repro_torch.kernels.sdtw import (ROWS_MAX_N, carry_from_numpy,
+                                      carry_to_numpy, choose_kernel,
+                                      kernel_carry_init, resolve_blocks,
+                                      resolve_rows, sdtw_cuda,
                                       sdtw_kernel_plain)
+from repro_torch.kernels.sdtw.ops import (ROWS_PER_LANE, SCRATCH_LIMIT,
+                                          scratch_batch, smem_bytes)
 
 # The (B, N, M, block_q, block_m) sweep of tests/test_sdtw_kernel.py.
 SHAPES = [
@@ -151,18 +156,94 @@ def test_plain_version_is_the_cpu_path(rng):
     assert torch.equal(raw[0], d) and torch.equal(raw[1], p)
 
 
+#: Table V shape → (R, lanes in use) of the rows kernel.
+TABLE_V_ROWS = {"Human": (4, 30), "Song": (7, 29), "Penguin": (25, 32),
+                "Seismology": (2, 32), "Power": (48, 32), "ECG": (16, 32)}
+
+
 def test_resolve_blocks_hopper_policy():
-    bq, tile, tpq, ring = resolve_blocks(131072, 7997, n=120)
-    assert (bq, tpq) == (4, 128) and ring >= 120 + tile
+    """Every Table V shape runs on the rows kernel, R rows a lane with
+    32·R within 1.15·N; longer queries run on the wavefront kernel, whose
+    rows and diagonals move to a global scratch past shared memory."""
+    for name, w in load_real_workload_shapes().items():
+        n, b = w["query_size"], w["num_queries"]
+        assert choose_kernel(n) == "rows", name
+        warps, rows = resolve_rows(b, n, sms=132)
+        assert (rows, -(-n // rows)) == TABLE_V_ROWS[name], name
+        assert n <= 32 * rows <= 1.15 * n, name
+        assert warps == 4 and -(-b // warps) >= 132, name
+    assert resolve_rows(256, 512, sms=132) == (1, 16)   # ECG-cut: 256 blocks
+    assert resolve_rows(600, 120, sms=132) == (4, 4)
+    assert resolve_rows(8, 64, 2, sms=132) == (2, 2)
+    # Every R the kernel is built for is reached, at an N it does not
+    # divide (the generic harvest) where R > 1.
+    for rows in ROWS_PER_LANE:
+        assert resolve_rows(1, 32 * rows - 3, sms=132)[1] == rows
+
+    bq, tile, tpq, ring, scratch = resolve_blocks(131072, 7997, n=120)
+    assert (bq, tpq, scratch) == (4, 128, False) and ring >= 120 + tile
     assert ring & (ring - 1) == 0
     assert resolve_blocks(3, 100, n=120)[0] == 3
-    bq, _, tpq, _ = resolve_blocks(16, 10**6, n=1536, span=True)
-    assert (bq, tpq) == (1, 512)
-    assert resolve_blocks(8, 64, 2, 32, n=33) == (2, 32, 64, 128)
+    bq, _, tpq, _, scratch = resolve_blocks(16, 10**6, n=1536, span=True)
+    assert (bq, tpq, scratch) == (1, 512, False)
+    assert resolve_blocks(8, 64, 2, 32, n=33) == (2, 32, 64, 128, False)
+    # N = 5000 runs on the wavefront kernel; one query a block still fits
+    # in shared memory (172,768 bytes in span mode), two do not.
+    assert choose_kernel(5000) == "wavefront"
+    bq, _, tpq, _, scratch = resolve_blocks(4, 3000, n=5000, span=True)
+    assert (bq, tpq, scratch) == (1, 512, False)
+    assert resolve_blocks(4, 3000, 2, n=5000, span=True)[4]
+    assert smem_bytes(5000, 1, 8192, True) == 172_768
+    # At one query a block the scratch starts at N = 7132 (span mode) and
+    # N = 10433 (plain).
+    for n, span in ((7132, True), (10_433, False)):
+        assert not resolve_blocks(1, 3000, n=n - 1, span=span)[4]
+        assert resolve_blocks(1, 3000, n=n, span=span)[4]
+    assert resolve_blocks(4, 3000, n=12_000)[4]
+    assert resolve_blocks(64, 64, 2, 64, n=4096, span=True)[4]
+
+
+def test_kernel_choice_and_rows_validation():
+    assert choose_kernel(1) == choose_kernel(ROWS_MAX_N) == "rows"
+    assert choose_kernel(ROWS_MAX_N + 1) == "wavefront"
+    assert choose_kernel(10, "wavefront") == "wavefront"
+    with pytest.raises(ValueError, match="kernel must be"):
+        choose_kernel(10, "pallas")
     with pytest.raises(ValueError, match="up to"):
-        resolve_blocks(1, 64, n=MAX_N + 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        resolve_blocks(64, 64, 2, 64, n=4096, span=True)
+        choose_kernel(ROWS_MAX_N + 1, "rows")
+    with pytest.raises(ValueError, match="up to"):
+        resolve_rows(1, ROWS_MAX_N + 1, sms=132)
+    with pytest.raises(ValueError, match="queries per block"):
+        resolve_rows(1, 120, block_q=9, sms=132)
+    with pytest.raises(ValueError, match="kernel must be"):
+        sdtw_cuda(np.zeros((1, 4), np.int32), np.zeros(8, np.int32),
+                  kernel="bogus", device="cpu")
+
+
+def test_wavefront_scratch_is_bounded():
+    """The global scratch of one launch stays within SCRATCH_LIMIT, in
+    whole blocks, whatever the batch; a block too large for it raises."""
+    for n, bq, span in ((5000, 1, False), (48_000, 1, True), (4096, 2, True)):
+        step = scratch_batch(n, bq, span)
+        assert step % bq == 0 and step >= bq
+        assert step // bq * smem_bytes(n, bq, 0, span) <= SCRATCH_LIMIT
+    with pytest.raises(ValueError, match="scratch"):
+        scratch_batch(SCRATCH_LIMIT // 16 + 1, 1, False)
+
+
+@pytest.mark.parametrize("spans", [False, True])
+def test_long_query_matches_pallas(spans, rng):
+    """N = 5000, past the shared memory of a wavefront block: the plain
+    version equals the Pallas kernel bitwise, last row and carry too."""
+    q = rng.integers(-40, 40, (2, 5000)).astype(np.int32)
+    r = rng.integers(-40, 40, 64).astype(np.int32)
+    qlens = np.array([5000, 3777], np.int32)
+    kw = dict(return_positions=not spans, return_spans=spans,
+              return_carry=True, return_lastrow=True, ref_offset=11)
+    want = sdtw_pallas(jnp.asarray(q), jnp.asarray(r), jnp.asarray(qlens),
+                       **kw)
+    got = sdtw_cuda(q, r, qlens, device="cpu", kernel="wavefront", **kw)
+    _equal(got, want)
 
 
 def test_wrapper_validation(rng):

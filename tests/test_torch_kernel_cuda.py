@@ -1,10 +1,11 @@
-"""The hand-written CUDA sDTW kernel against its plain PyTorch version.
+"""The hand-written CUDA sDTW kernels against their plain PyTorch version.
 
 Runs only where a CUDA device is present (the ``cuda`` marker; the
 fixture skips elsewhere): ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_kernel_cuda.py``. Imports no JAX: the same inputs, made
-from a seed with numpy, go through ``sdtw_cuda`` on the card (the kernel)
-and on the CPU (the plain version).
+from a seed with numpy, go through ``sdtw_cuda`` on the card (the rows
+kernel and the wavefront kernel, forced by ``kernel=``) and on the CPU
+(the plain version of both).
 
 Tolerances: int32 bitwise, and float32 bitwise too, because the inputs
 are integer-valued and every sum stays exact below 2**24; one float32
@@ -16,9 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.sdtw import LAUNCHES, reset_launches, sdtw_cuda
+from repro_torch.kernels.sdtw import (LAUNCHES, ROWS_MAX_N, reset_launches,
+                                      sdtw_cuda)
+from repro_torch.kernels.sdtw import ops
+from repro_torch.kernels.sdtw.ops import ROWS_PER_LANE
 
 pytestmark = pytest.mark.cuda
+KERNELS = ["rows", "wavefront"]
 
 SHAPES = [  # (B, N, M, block_q, block_m)
     (1, 1, 1, None, None),
@@ -47,6 +52,7 @@ def _flat(x):
 
 def _both(args, kwargs, cuda):
     got = _flat(sdtw_cuda(*args, **kwargs, device=cuda))
+    kwargs = {k: v for k, v in kwargs.items() if k != "kernel"}
     torch.cuda.synchronize()
     want = _flat(sdtw_cuda(*args, **kwargs, device="cpu"))
     assert len(got) == len(want)
@@ -58,13 +64,17 @@ def _both(args, kwargs, cuda):
 @pytest.mark.parametrize("metric", ["abs_diff", "square_diff"])
 @pytest.mark.parametrize("mode", ["plain", "span", "lastrow",
                                   "span_lastrow"])
-def test_kernel_equals_plain(b, n, m, bq, bm, dtype, metric, mode, cuda):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_equals_plain(b, n, m, bq, bm, dtype, metric, mode, kernel,
+                             cuda):
     rng = np.random.default_rng(b * 1000 + n + m)
     q = rng.integers(-40, 40, (b, n)).astype(dtype)
     r = rng.integers(-40, 40, m).astype(dtype)
     qlens = rng.integers(1, n + 1, b).astype(np.int32)
     qlens[0] = n
-    kwargs = dict(block_q=bq, block_m=bm, return_carry=True,
+    if kernel == "rows":                         # the wavefront's tile
+        bm = None
+    kwargs = dict(block_q=bq, block_m=bm, return_carry=True, kernel=kernel,
                   return_positions=True, ref_offset=5,
                   return_spans=mode.startswith("span"),
                   return_lastrow=mode.endswith("lastrow"))
@@ -73,52 +83,87 @@ def test_kernel_equals_plain(b, n, m, bq, bm, dtype, metric, mode, cuda):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("rows", ROWS_PER_LANE)
+@pytest.mark.parametrize("mode", ["plain", "span", "lastrow",
+                                  "span_lastrow"])
+def test_rows_kernel_every_r_and_ragged_lengths(rows, mode, cuda):
+    """Every R the rows kernel is built for, at an N it does not divide
+    (where R > 1; the policy picks R there), with ragged lengths: some
+    queries end on a lane's last slot (the fixed harvest), the others
+    anywhere (the generic harvest), and two have no last row (qlen 0 and
+    N + 1)."""
+    n = 32 * rows - 3
+    assert ops.resolve_rows(9, n, sms=132)[1] == rows
+    rng = np.random.default_rng(rows)
+    q = rng.integers(-40, 40, (9, n)).astype(np.int32)
+    r = rng.integers(-40, 40, 300).astype(np.int32)
+    qlens = np.array([n, rows, 2 * rows, 1, n - 1, max(1, n // 2), 0, n + 1,
+                      rng.integers(1, n + 1)], np.int32)
+    got, want = _both((q, r, qlens), dict(
+        kernel="rows", return_carry=True, ref_offset=3,
+        return_positions=True, return_spans=mode.startswith("span"),
+        return_lastrow=mode.endswith("lastrow")), cuda)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("lead,rlen", [(0, 40), (3, 64), (5, 5), (0, 0),
                                        (10, 70)])
-def test_kernel_lead_len_window(lead, rlen, cuda):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_lead_len_window(lead, rlen, kernel, cuda):
     rng = np.random.default_rng(lead * 100 + rlen)
     q = rng.integers(-40, 40, (4, 9)).astype(np.int32)
     r = rng.integers(-40, 40, 70).astype(np.int32)
     got, want = _both((q, r, np.array([9, 1, 4, 7], np.int32)), dict(
         return_spans=True, return_carry=True, return_lastrow=True,
-        ref_lead=lead, ref_len=rlen, ref_offset=100), cuda)
+        ref_lead=lead, ref_len=rlen, ref_offset=100, kernel=kernel), cuda)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("track", [False, True])
-def test_kernel_carry_chaining_equals_one_launch(track, cuda):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_carry_chaining_equals_one_launch(track, kernel, cuda):
     rng = np.random.default_rng(7)
     q = torch.from_numpy(rng.integers(-40, 40, (5, 33)).astype(np.int32))
     r = torch.from_numpy(rng.integers(-40, 40, 1000).astype(np.int32))
     whole = sdtw_cuda(q, r, return_spans=track, return_positions=True,
-                      return_carry=True, device=cuda)
+                      return_carry=True, device=cuda, kernel=kernel)
     carry = None
     for off in range(0, 1000, 300):
         _, carry = sdtw_cuda(q, r[off:off + 300], carry=carry,
                              ref_offset=off, return_carry=True,
-                             track_start=track, device=cuda)
+                             track_start=track, device=cuda, kernel=kernel)
     for g, w in zip(_flat(carry), _flat(whole[1])):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
-def test_kernel_block_policy_invariance(cuda):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_block_policy_invariance(kernel, cuda):
+    """Queries per block and the staged tile (wavefront) change nothing in
+    the answer; the rows kernel also equals the wavefront."""
     rng = np.random.default_rng(11)
     q = rng.integers(-40, 40, (7, 40)).astype(np.int32)
     r = rng.integers(-40, 40, 600).astype(np.int32)
+    tiles = [8, 64, 256, 1000] if kernel == "wavefront" else [None] * 4
     outs = [_flat(sdtw_cuda(q, r, block_q=bq, block_m=bm, return_spans=True,
-                            return_carry=True, device=cuda))
-            for bq, bm in [(1, 8), (2, 64), (7, 256), (3, 1000)]]
+                            return_carry=True, device=cuda, kernel=kernel))
+            for bq, bm in zip([1, 2, 7, 3], tiles)]
+    if kernel == "rows":
+        outs.append(_flat(sdtw_cuda(q, r, return_spans=True,
+                                    return_carry=True, device=cuda,
+                                    kernel="wavefront")))
     for o in outs[1:]:
         for g, w in zip(o, outs[0]):
             np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
-def test_kernel_float32_real_valued(cuda):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_float32_real_valued(kernel, cuda):
     rng = np.random.default_rng(13)
     q = rng.normal(0, 10, (6, 50)).astype(np.float32)
     r = rng.normal(0, 10, 800).astype(np.float32)
-    got = sdtw_cuda(q, r, device=cuda).cpu().numpy()
+    got = sdtw_cuda(q, r, device=cuda, kernel=kernel).cpu().numpy()
     want = sdtw_cuda(q, r, device="cpu").numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
@@ -127,9 +172,52 @@ def test_kernel_counts_launches_and_raises(cuda):
     reset_launches()
     q = torch.zeros((2, 4), dtype=torch.int32)
     r = torch.zeros(16, dtype=torch.int32)
-    sdtw_cuda(q, r, device=cuda)
-    sdtw_cuda(q, r, return_spans=True, device=cuda)
-    sdtw_cuda(q, r, return_lastrow=True, device=cuda)
-    assert LAUNCHES == {"sdtw_plain": 1, "sdtw_span": 1, "sdtw_lastrow": 1}
+    for kernel in ("auto", "wavefront"):
+        sdtw_cuda(q, r, device=cuda, kernel=kernel)
+        sdtw_cuda(q, r, return_spans=True, device=cuda, kernel=kernel)
+        sdtw_cuda(q, r, return_lastrow=True, device=cuda, kernel=kernel)
+    assert LAUNCHES == {"rows_plain": 1, "rows_span": 1, "rows_lastrow": 1,
+                        "wavefront_plain": 1, "wavefront_span": 1,
+                        "wavefront_lastrow": 1}
     with pytest.raises(ValueError, match="up to"):
-        sdtw_cuda(torch.zeros((1, 5000), dtype=torch.int32), r, device=cuda)
+        sdtw_cuda(torch.zeros((1, ROWS_MAX_N + 1), dtype=torch.int32), r,
+                  device=cuda, kernel="rows")
+    with pytest.raises(ValueError, match="block_m"):
+        sdtw_cuda(q, r, block_m=16, device=cuda, kernel="rows")
+
+
+@pytest.mark.parametrize("block_q", [None, 2])
+@pytest.mark.parametrize("mode", ["plain", "span_lastrow"])
+def test_long_query_equals_plain(block_q, mode, cuda):
+    """N = 5000 runs on the wavefront kernel ("auto"): one query a block
+    in shared memory, two a block through the global scratch."""
+    rng = np.random.default_rng(5000)
+    q = rng.integers(-40, 40, (3, 5000)).astype(np.int32)
+    r = rng.integers(-40, 40, 700).astype(np.int32)
+    reset_launches()
+    got, want = _both((q, r, np.array([5000, 4321, 1], np.int32)), dict(
+        block_q=block_q, return_carry=True, return_positions=True,
+        return_spans=mode.startswith("span"),
+        return_lastrow=mode.endswith("lastrow")), cuda)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert sum(v for k, v in LAUNCHES.items()
+               if k.startswith("wavefront")) == 1
+
+
+def test_scratch_launches_in_bounded_slices(monkeypatch, cuda):
+    """A scratch limit of one block (two queries) splits a batch of five
+    queries into three launches, with the answer of one launch."""
+    rng = np.random.default_rng(3)
+    q = rng.integers(-40, 40, (5, 5000)).astype(np.int32)
+    r = rng.integers(-40, 40, 300).astype(np.int32)
+    kw = dict(block_q=2, return_spans=True, return_carry=True,
+              device=cuda)
+    whole = _flat(sdtw_cuda(q, r, **kw))
+    monkeypatch.setattr(ops, "SCRATCH_LIMIT",
+                        ops.smem_bytes(5000, 2, 0, True))
+    reset_launches()
+    sliced = _flat(sdtw_cuda(q, r, **kw))
+    assert LAUNCHES["wavefront_span"] == 3
+    for g, w in zip(sliced, whole):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
