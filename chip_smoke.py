@@ -36,10 +36,22 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      ragged lengths (its generic harvest); both kernels, every variant,
      at the other four Table V shapes cut to 4,224 queries (which is the
      faster: ``kernel="auto"``'s routing), checked equal to each other;
+  9. pruned top-K search (``search_topk``, k = 3): all Human queries at
+     full size, held on 64 queries against the exact search and the
+     plain route (``engine_impl='rowscan'``); the ECG-cut batch, its top-1
+     against phase 6; 8 queries of ECG's shape against a level-shifted
+     reference, where chunks prune;
+ 10. a streaming session at ECG-cut: the 256 queries fed in 18 pieces of
+     100,000 samples with spans, top-3 and alerts, its top-1 against
+     phase 6, a snapshot after piece 9 restored and continued bitwise; a
+     pruned stream of the 8 level-shifted queries against the exact one;
+ 11. alignment (``engine.align``) of 64 Human and 4 ECG-cut queries: every
+     path valid and replaying its distance bitwise;
      then the JSON lines.
 
-Phases 4-6 run on the rows kernel (``kernel="auto"``), phase 7 on the
-wavefront kernel; each reads the launch counts set to 0 just before it.
+Phases 4-6 and 9-11 run on the rows kernel (``kernel="auto"``), phase 7
+on the wavefront kernel; each path reads the launch counts set to 0 just
+before it (``launches_by_path`` in the JSON line).
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on its path, its largest difference
 from the plain version, its time, the plain version's time and its bound.
@@ -345,6 +357,250 @@ def phase_kernels(h, np, rng):
             q, r, track=True, kernel=kernel, **launch), base)
         n_checks += 1
     return n_checks
+
+
+class KernelTimer:
+    """CUDA events around every ``sdtw_cuda`` call the port makes while
+    active (the package attribute the search and stream layers call is
+    wrapped), so a path's kernel time can be set beside its wall time."""
+
+    def __init__(self, torch, kpkg):
+        self.torch, self.kpkg, self.events = torch, kpkg, []
+
+    def __enter__(self):
+        self.orig = self.kpkg.sdtw_cuda
+
+        def timed(*a, **kw):
+            ev = [self.torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            ev[0].record()
+            out = self.orig(*a, **kw)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+        self.kpkg.sdtw_cuda = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.kpkg.sdtw_cuda = self.orig
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def level_shifted(np, rng, m: int, seg: int = 1 << 16):
+    """int32 noise (sigma 40) around a level that moves by 1,000 every
+    ``seg`` samples — a sensor whose operating point shifts, so the
+    envelopes of far chunks bound a query away and chunks prune."""
+    levels = 1000 * rng.permutation(-(-m // seg)) - 14000
+    return (np.repeat(levels, seg)[:m]
+            + rng.normal(0, 40, m)).astype(np.int32)
+
+
+def _same_search(name, got, want):
+    """Two SearchResults bitwise (all fields and the pruning counters)."""
+    import torch
+    for f in ("distances", "starts", "positions"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{name}: {f} differ")
+    counters = ("chunks_total", "chunks_pruned_kim", "chunks_pruned_keogh",
+                "chunks_processed")
+    if [getattr(got, c) for c in counters] != \
+            [getattr(want, c) for c in counters]:
+        raise AssertionError(f"{name}: pruning counters differ")
+
+
+def _counters(res, prefix="chunks"):
+    keys = ("total", "pruned_kim", "pruned_keogh", "processed")
+    return {k: getattr(res, f"{prefix}_{k}") for k in keys}
+
+
+def phase_search(torch, np, ops, kpkg, human, ecg, ls8, dev):
+    """Phase 9: pruned top-K search at full width. Returns the launches of
+    each path."""
+    from repro_torch.core import engine
+    from repro_torch.search import search_topk
+    k = 3
+    qt, rt = human
+    launches = {}
+    ops.reset_launches()
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as timer:
+        res = search_topk(qt, rt, k=k, device=dev)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    kernel_ms = timer.ms()
+    launches["search_human"] = dict(ops.LAUNCHES)
+    if launches["search_human"]["rows_lastrow"] < 1 or sum(
+            launches["search_human"].values()) != \
+            launches["search_human"]["rows_lastrow"]:
+        raise AssertionError(f"Human search missed the kernel: "
+                             f"{launches['search_human']}")
+    sub = qt[:64]
+    exact = search_topk(sub, rt, k=k, prune=False, device=dev)
+    if not torch.equal(res.distances[:64], exact.distances):
+        raise AssertionError("Human search: distances != prune=False")
+    same_spans = int(((res.starts[:64] == exact.starts)
+                      & (res.positions[:64] == exact.positions)).all(1)
+                     .sum())
+    kern = search_topk(sub, rt, k=k, device=dev)
+    plain = search_topk(sub, rt, k=k, engine_impl="rowscan", device=dev)
+    _same_search("Human 64 queries kernel vs plain route", kern, plain)
+    log(f"phase 9: search_topk(k={k}) Human {tuple(qt.shape)} vs "
+        f"{rt.shape[0]}: {wall:.3f} s wall, kernel {kernel_ms:.3f} ms "
+        f"({kernel_ms / 1e3 / wall:.1%}), chunk {res.chunk}, "
+        f"{_counters(res)}, launches {launches['search_human']}; 64 "
+        f"queries: distances == prune=False (spans equal on {same_spans}/64"
+        f"), kernel route == plain route bitwise")
+
+    qe, re_, de = ecg
+    ops.reset_launches()
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as timer:
+        res = search_topk(qe, re_, k=k, device=dev)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    kernel_ms = timer.ms()
+    launches["search_ecg"] = dict(ops.LAUNCHES)
+    if launches["search_ecg"]["rows_lastrow"] < 1:
+        raise AssertionError(f"ECG search missed the kernel: "
+                             f"{launches['search_ecg']}")
+    if not torch.equal(res.distances[:, 0], de):
+        raise AssertionError("ECG search top-1 != engine.sdtw (phase 6)")
+    log(f"phase 9: search_topk(k={k}) ECG-cut {tuple(qe.shape)} vs "
+        f"{re_.shape[0]}: {wall:.3f} s wall, kernel {kernel_ms:.3f} ms "
+        f"({kernel_ms / 1e3 / wall:.1%}), chunk {res.chunk}, "
+        f"{_counters(res)}; top-1 == phase 6 bitwise")
+
+    q8, r8 = ls8
+    t0 = time.time()
+    res = search_topk(q8, r8, k=k, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if res.chunks_pruned < 1:
+        raise AssertionError(f"level-shifted search pruned nothing: "
+                             f"{_counters(res)}")
+    if not torch.equal(res.distances[:, 0],
+                       engine.sdtw(q8, r8, device=dev)):
+        raise AssertionError("level-shifted search top-1 != engine.sdtw")
+    log(f"phase 9: search_topk(k={k}) 8 level-shifted queries of "
+        f"{q8.shape[1]} vs {r8.shape[0]}: {wall:.3f} s wall, "
+        f"{_counters(res)}; top-1 == engine.sdtw")
+    return launches
+
+
+def phase_stream(torch, np, ops, kpkg, ecg, ls8, dev):
+    """Phase 10: a streaming session at ECG-cut. Returns its launches."""
+    from repro_torch.core import engine
+    from repro_torch.stream import StreamSession
+    qe, re_, (de, se, ee) = ecg
+    ref = re_.cpu().numpy()
+    piece = 100_000
+    thr = float(torch.quantile(de.double(), 0.1))
+    kw = dict(return_spans=True, top_k=3, alert_threshold=thr, device=dev)
+    ops.reset_launches()
+    snap = None
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as timer:
+        s = engine.stream(qe, **kw)
+        for i, off in enumerate(range(0, len(ref), piece)):
+            s.feed(ref[off:off + piece])
+            if i == 8:
+                snap = s.snapshot()
+        res = s.results()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    if s.impl != "pallas" or launches["rows_lastrow"] < 1:
+        raise AssertionError(f"stream missed the kernel: {launches}")
+    for f, want in (("distances", de), ("starts", se), ("positions", ee)):
+        if not np.array_equal(getattr(res, f)[:, 0], want.cpu().numpy()):
+            raise AssertionError(f"stream top-1 {f} != engine.sdtw")
+    best = {}
+    for ev in s.alerts:
+        if ev.distance > thr:
+            raise AssertionError(f"alert above the threshold: {ev}")
+        best[ev.query] = min(best.get(ev.query, ev.distance), ev.distance)
+    d = de.cpu().numpy()
+    below = {int(i) for i in np.nonzero(d <= thr)[0]}
+    if set(best) != below or any(best[i] != d[i] for i in below):
+        raise AssertionError("alerts disagree with the offline distances")
+    restored = StreamSession.restore(snap, device=dev)
+    at = restored.samples_seen
+    restored.feed(ref[at:])
+    res2 = restored.results()
+    for f in ("distances", "starts", "positions"):
+        if not np.array_equal(getattr(res2, f), getattr(res, f)):
+            raise AssertionError(f"restored stream {f} differ")
+    if restored.alerts != [e for e in s.alerts
+                           if e.tile_start >= snap_offset(snap)]:
+        raise AssertionError("restored stream alerts differ")
+    log(f"phase 10: stream ECG-cut {tuple(qe.shape)}, {len(ref) // piece} "
+        f"pieces of {piece} (tile {s.chunk}): {wall:.3f} s wall, kernel "
+        f"{timer.ms():.3f} ms ({timer.ms() / 1e3 / wall:.1%}), tiles "
+        f"{res.tiles_total} processed {res.tiles_processed}, "
+        f"{len(s.alerts)} alerts (threshold {thr:.0f}) for {len(below)} "
+        f"queries; launches {launches}; top-1 == phase 6 bitwise, "
+        f"snapshot after piece 9 restored at {at} samples == bitwise")
+
+    q8, r8 = ls8
+    r8 = r8.cpu().numpy()
+    exact = engine.stream(q8, top_k=3, return_spans=True, device=dev)
+    pruned = engine.stream(q8, top_k=3, return_spans=True, prune=True,
+                           device=dev)
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as ptimer:
+        for off in range(0, len(r8), piece):
+            pruned.feed(r8[off:off + piece])
+        pres = pruned.results()
+    pwall = time.time() - t0
+    for off in range(0, len(r8), piece):
+        exact.feed(r8[off:off + piece])
+    eres = exact.results()
+    if not np.array_equal(pres.distances, eres.distances):
+        raise AssertionError("pruned stream distances != exact stream")
+    if pres.tiles_pruned < 1:
+        raise AssertionError("pruned stream pruned no tile")
+    spans = int((np.all(pres.starts == eres.starts, axis=1)
+                 & np.all(pres.positions == eres.positions, axis=1)).sum())
+    log(f"phase 10: pruned stream, 8 level-shifted queries: {pwall:.3f} s "
+        f"wall, kernel {ptimer.ms():.3f} ms, {_counters(pres, 'tiles')}; "
+        f"distances == exact stream (spans equal on {spans}/8)")
+    return launches
+
+
+def snap_offset(snap) -> int:
+    """Samples a snapshot's session had advanced through the DP."""
+    return json.loads(str(snap["meta"][()]))["offset"]
+
+
+def phase_align(torch, np, ops, kpkg, human, ecg, dev):
+    """Phase 11: alignment paths. Returns its launches."""
+    from repro_torch.core import engine
+    from repro_torch.core.traceback import check_path, path_cost
+    ops.reset_launches()
+    n_paths = 0
+    times = {}
+    for name, (q, r) in (("Human", human), ("ECG-cut", ecg)):
+        t0 = time.time()
+        with KernelTimer(torch, kpkg) as timer:
+            res = engine.align(q, r, device=dev)
+        times[name] = (f"{q.shape[0]} queries {time.time() - t0:.3f} s "
+                       f"wall, kernel {timer.ms():.3f} ms")
+        for i, a in enumerate(res):
+            if a.path is None or not check_path(a.path, a.start, a.end,
+                                                q.shape[1]):
+                raise AssertionError(f"{name} query {i}: invalid path")
+            if path_cost(q[i], r, a.path) != a.distance:
+                raise AssertionError(f"{name} query {i}: path cost != "
+                                     f"distance")
+            n_paths += 1
+    launches = dict(ops.LAUNCHES)
+    if launches["rows_span"] < 2:
+        raise AssertionError(f"align missed the kernel: {launches}")
+    log(f"phase 11: align {times}: {n_paths} paths valid, each replaying "
+        f"its distance bitwise; launches {launches}")
+    return launches
 
 
 def ptxas_summary(log_text: str):
@@ -654,6 +910,28 @@ def main() -> int:
                 f"rows/wavefront {ms['rows'] / ms['wavefront']:.3f}")
         del qq, rr
 
+    # Phases 9-11: search, streaming and alignment at full width. The
+    # 8-query runs use a level-shifted reference of ECG's length, where
+    # far chunks bound the queries away (on ECG-cut's periodic reference
+    # every chunk's envelope covers every query, so nothing prunes).
+    import repro_torch.kernels.sdtw as kpkg
+    ls_ref = level_shifted(np, rng, me)
+    ls_q = np.stack([ls_ref[p:p + ne] for p in
+                     rng.choice(me - ne, 8, replace=False)])
+    ls_q = ls_q + rng.integers(-3, 4, ls_q.shape).astype(np.int32)
+    ls8 = (torch.as_tensor(ls_q, device=dev),
+           torch.as_tensor(ls_ref, device=dev))
+    path_by = phase_search(torch, np, ops, kpkg, (qt, rt), (qe, re_, de),
+                           ls8, dev)
+    path_by["stream_ecg"] = phase_stream(torch, np, ops, kpkg,
+                                         (qe, re_, (de, se, ee)), ls8, dev)
+    path_by["align"] = phase_align(torch, np, ops, kpkg,
+                                   (queries[:64], reference),
+                                   (q_e[:4], ref_e), dev)
+    path_by = {"matsa_human": human_launches, "topk_fold_human":
+               topk_launches, "sdtw_spans_ecg": ecg_launches,
+               "long_queries": long_launches, **path_by}
+
     def bound(b_, n_, m_, track, lastrow):
         acc = 4
         byts = (b_ * n_ * acc + m_ * acc + b_ * 4          # q, r, qlens
@@ -689,6 +967,9 @@ def main() -> int:
             rows.append({"name": key, "route": "cuda", "source": src[kernel],
                          "replaces": "src/repro/kernels/sdtw/ops.py:140",
                          "launches": path_launches[key],
+                         "launches_by_path": {
+                             path: c.get(key, 0)
+                             for path, c in path_by.items()},
                          "max_abs_err": h.err[key],
                          "ms": times[key, shape],
                          "plain_ms": plain_times[var, shape],

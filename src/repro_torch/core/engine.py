@@ -1,8 +1,9 @@
 """The sDTW engine — the front door every caller routes through.
 
-Counterpart of ``repro.core.engine`` (``sdtw`` and its dispatch; ``align``
-and ``stream`` come with ROADMAP items 7 and 9). ``sdtw()`` hides the
-execution regimes behind one call:
+Counterpart of ``repro.core.engine``: ``sdtw`` and its dispatch,
+``align`` (span plus warping path) and ``stream`` (online sessions,
+``repro_torch.stream``). ``sdtw()`` hides the execution regimes behind
+one call:
 
   * ``rowscan`` / ``wavefront`` — the in-core schedules of
     ``repro_torch.core.sdtw``, plain PyTorch on any device.
@@ -43,10 +44,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.device import as_tensor, resolve_device
-from .distances import accum_dtype, result_dtype
-from .request import SdtwRequest, _not_ported
+from repro_torch.device import as_tensor, resolve_device, to_numpy
+from .distances import accum_dtype, big, result_dtype
+from .request import SdtwRequest, StreamRequest, _not_ported
 from .sdtw import sdtw_batch, sdtw_chunked
+from .traceback import DEFAULT_TRACE_CHUNK, AlignResult, traceback_path
 
 CHUNK_THRESHOLD = 1 << 17   # auto-switch to streaming above this M
 DEFAULT_CHUNK = 8192        # tile size for chunked streaming
@@ -204,6 +206,99 @@ def _execute_sdtw(req: SdtwRequest):
     if single:
         out = tuple(o[0] for o in out) if isinstance(out, tuple) else out[0]
     return out
+
+
+def stream(queries, *, qlens=None, metric: str = "abs_diff",
+           impl: str = "auto", chunk: Optional[int] = None, mesh=None,
+           mesh_shape=None, ref_axis: str = "ref",
+           n_micro: Optional[int] = None, top_k: Optional[int] = None,
+           excl_zone=None, excl_mode: str = "end",
+           return_spans: bool = False, return_positions: bool = False,
+           excl_lo=None, excl_hi=None, prune: bool = False,
+           span_cap: Optional[int] = None, alert_threshold=None,
+           on_alert=None, cache=None, ref_key=None,
+           block_q: Optional[int] = None, block_m: Optional[int] = None,
+           device=None):
+    """Open an online monitoring session: the streaming front door.
+
+    Args as ``repro.core.engine.stream``. The session's ``feed(chunk)``
+    consumes the reference as an unbounded chunk sequence;
+    ``results()`` at any point equals the offline ``sdtw()`` /
+    ``search_topk()`` answer over the samples fed so far (bitwise for
+    int32, any feed partition); ``snapshot()`` / ``StreamSession.restore``
+    give fault-tolerant serving, in the reference's snapshot format.
+    ``impl='pallas'`` streams fed tiles through the sDTW kernel's carry —
+    top-K heaps, alerts and pruning scoring on its last-row capture;
+    ``'auto'`` picks it on a CUDA device (the row-scan tile loop only for
+    per-query exclusion ranges, which the kernel does not take) and the
+    row-scan loop elsewhere. ``device`` is where the session runs
+    (``None``: the CUDA device). ``mesh``/``mesh_shape``/
+    ``impl='sharded'`` are not ported yet (ROADMAP queue 1, item 12).
+    """
+    return StreamRequest(
+        queries=queries, qlens=qlens, metric=metric, impl=impl,
+        chunk=chunk, mesh=mesh, mesh_shape=mesh_shape, ref_axis=ref_axis,
+        n_micro=n_micro, top_k=top_k, excl_zone=excl_zone,
+        excl_mode=excl_mode, return_spans=return_spans,
+        return_positions=return_positions, excl_lo=excl_lo,
+        excl_hi=excl_hi, prune=prune, span_cap=span_cap,
+        alert_threshold=alert_threshold, on_alert=on_alert, cache=cache,
+        ref_key=ref_key, block_q=block_q, block_m=block_m,
+        device=device).open()
+
+
+def align(queries, reference, qlens=None, *, metric: str = "abs_diff",
+          impl: str = "auto", chunk: Optional[int] = None, mesh=None,
+          ref_axis: str = "ref", trace_chunk: int = DEFAULT_TRACE_CHUNK,
+          device=None):
+    """Best alignment of each query, localized: span plus full warping
+    path.
+
+    Two bounded-memory passes, as ``repro.core.engine.align``: (1) the
+    engine's span mode finds ``(distance, start, end)`` on ``device`` on
+    whatever path ``impl``/"auto" selects (the kernel's span variant on
+    the card); only those (B,) spans, the queries and each span's
+    reference window come to the host; (2) ``traceback_path`` re-runs the
+    DP inside the ``[start, end]`` window in ``trace_chunk``-column blocks
+    to recover the monotone warping path.
+
+    Returns an ``AlignResult`` for a single 1-D query, else a list of
+    ``AlignResult`` (one per query, in caller order; ragged lists
+    accepted). Saturated matches (distance ≥ BIG) come back with
+    ``start = end = -1`` and ``path = None``. ``mesh`` is not ported yet
+    (ROADMAP queue 1, item 12).
+    """
+    if mesh is not None:
+        raise _not_ported("align(mesh=) (the sharded driver)", 12)
+    ragged = isinstance(queries, (list, tuple))
+    single = not ragged and np.ndim(queries) == 1
+    d, s, e = sdtw(queries, reference, qlens, metric=metric, impl=impl,
+                   chunk=chunk, ref_axis=ref_axis, return_spans=True,
+                   device=device)
+    d, s, e = (np.atleast_1d(to_numpy(x)) for x in (d, s, e))
+    if ragged:
+        qs = [to_numpy(q) for q in queries]
+    else:
+        q2 = to_numpy(queries)
+        q2 = q2[None, :] if q2.ndim == 1 else q2
+        lens = (np.full((q2.shape[0],), q2.shape[1], np.int64)
+                if qlens is None else to_numpy(qlens).astype(np.int64))
+        qs = [q2[i, :int(lens[i])] for i in range(q2.shape[0])]
+    BIG = big(torch.float32 if d.dtype.kind == "f" else torch.int32)
+    results = []
+    for i, q in enumerate(qs):
+        if d[i] >= BIG or s[i] < 0:
+            results.append(AlignResult(distance=d[i], start=-1, end=-1,
+                                       path=None))
+            continue
+        start, end = int(s[i]), int(e[i])
+        window = to_numpy(reference[start:end + 1])
+        path = traceback_path(q, window, 0, end - start, metric=metric,
+                              chunk=trace_chunk)
+        path[:, 1] += start
+        results.append(AlignResult(distance=d[i], start=start, end=end,
+                                   path=path))
+    return results[0] if single else results
 
 
 def _pallas_streamed(queries, reference, qlens, metric, chunk, block_q,

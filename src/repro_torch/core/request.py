@@ -1,22 +1,28 @@
-"""The request object behind ``engine.sdtw`` — one argument surface.
+"""The request objects behind the port's front doors — one argument
+surface.
 
-Counterpart of ``repro.core.request`` for ``op='sdtw'``: a frozen
-``SdtwRequest`` holds the call's arguments, ``validate()`` runs the
-front-door checks with the reference's messages, and ``run()`` dispatches
-to ``engine._execute_sdtw``. What later slices of the port bring raises
-``NotImplementedError`` naming its item in ``ROADMAP.md`` (queue 1):
-meshes and ``impl='sharded'`` (item 12), ``op='search_topk'`` (item 8),
-tuning modes other than ``'off'`` and ``explain=True`` (item 11; int32
-answers do not depend on tuning). ``StreamRequest`` waits for item 9.
+Counterpart of ``repro.core.request``: a frozen ``SdtwRequest`` holds an
+offline call's arguments — ``op='sdtw'`` (``engine.sdtw``) or
+``op='search_topk'`` (``repro_torch.search.search_topk``) — and
+``validate()`` runs the front-door checks with the reference's messages;
+``run()`` dispatches. ``StreamRequest`` is ``engine.stream``'s argument
+surface; ``open()`` returns the ``StreamSession``. What later slices of
+the port bring raises ``NotImplementedError`` naming its item in
+``ROADMAP.md`` (queue 1): meshes, ``impl='sharded'`` and the sharded
+stream session (item 12), tuning modes other than ``'off'`` and
+``explain=True`` (item 11; int32 answers do not depend on tuning).
 
 Argument semantics (as in the reference):
 
   * ``excl_zone`` — top-K suppression radius between reported matches;
     ``None`` derives it per query (half the true length with
     ``excl_mode='end'``, 0 with ``'span'``); a scalar applies to all; a
-    per-query ``(nq,)`` array is honoured by the chunked path.
+    per-query ``(nq,)`` array is honoured by the chunked path and stream
+    sessions (the search layer takes scalars).
   * ``excl_lo``/``excl_hi`` — banned reference column range (self-join
     exclusion); given together or not at all.
+  * ``top_k``/``k`` — matches per query; the search front door spells it
+    ``k``.
   * ``device`` — where the call runs: ``None`` means the CUDA device,
     ``"cpu"`` the plain PyTorch versions.
 """
@@ -25,7 +31,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
+
 IMPLS = ("auto", "rowscan", "wavefront", "pallas", "chunked", "sharded")
+STREAM_IMPLS = ("auto", "rowscan", "pallas", "sharded")
+SEARCH_ENGINE_IMPLS = ("auto", "rowscan", "pallas")
 EXCL_MODES = ("end", "span")
 OPS = ("sdtw", "search_topk")
 TUNE_MODES = ("model", "measure", "off")
@@ -59,10 +69,13 @@ def _check_forced_impl(impl: str, *, chunk, top_k):
 
 @dataclasses.dataclass(frozen=True)
 class SdtwRequest:
-    """One offline sDTW call, as data. ``impl='pallas'`` names the
-    repo's hand-written sDTW kernel (CUDA on the card, its plain version
-    on the CPU). ``run()`` validates and executes — the path
-    ``engine.sdtw`` takes."""
+    """One offline call, as data: ``op='sdtw'`` (the engine) or
+    ``op='search_topk'`` (the pruned search layer; its fields ``prune``,
+    ``span_cap``, ``normalize``, ``cache``, ``ref_key`` and
+    ``engine_impl`` are ignored by ``op='sdtw'``). ``impl='pallas'`` and
+    ``engine_impl='pallas'`` name the repo's hand-written sDTW kernel
+    (CUDA on the card, its plain version on the CPU). ``run()``
+    validates and executes — the path the keyword front doors take."""
     queries: Any = None
     reference: Any = None
     qlens: Any = None
@@ -86,16 +99,18 @@ class SdtwRequest:
     explain: bool = False
     op: str = "sdtw"
     device: Any = None
+    # --- search_topk-only ------------------------------------------------
+    prune: bool = True
+    span_cap: Optional[int] = None
+    normalize: bool = False
+    cache: Any = None
+    ref_key: Any = None
+    engine_impl: str = "auto"
 
     @classmethod
     def from_kwargs(cls, **kwargs) -> "SdtwRequest":
         """Build a request from a kwargs dict, rejecting unknown keys."""
-        fields = {f.name for f in dataclasses.fields(cls)}
-        unknown = sorted(set(kwargs) - fields)
-        if unknown:
-            raise ValueError(
-                f"unknown {cls.__name__} argument(s) {unknown}; valid "
-                f"arguments are {sorted(fields)}")
+        _reject_unknown(cls, kwargs)
         return cls(**kwargs)
 
     def validate(self) -> "SdtwRequest":
@@ -106,7 +121,7 @@ class SdtwRequest:
             raise ValueError(f"tune must be one of {TUNE_MODES}, got "
                              f"{self.tune!r}")
         if self.op == "search_topk":
-            raise _not_ported("op='search_topk' (pruned search)", 8)
+            return self._validate_search()
         if self.tune != "off":
             raise _not_ported(f"tune={self.tune!r} (no fitted H100 cost "
                               f"model yet)", 11)
@@ -142,7 +157,175 @@ class SdtwRequest:
                              "impl='sharded') or drop n_micro=")
         return self
 
+    def _validate_search(self) -> "SdtwRequest":
+        # The search front door spells top_k as ``k`` and keeps its own
+        # message wording, as in the reference.
+        if self.top_k is None or not isinstance(self.top_k, int) \
+                or self.top_k < 1:
+            raise ValueError(f"k must be a positive int, got {self.top_k!r}")
+        if self.excl_mode not in EXCL_MODES:
+            raise ValueError(f"excl_mode must be 'end' or 'span', got "
+                             f"{self.excl_mode!r}")
+        if (self.excl_lo is None) != (self.excl_hi is None):
+            raise ValueError("excl_lo and excl_hi must be given together "
+                             "(a one-sided zone would silently ban nothing)")
+        if self.excl_zone is not None and np.ndim(self.excl_zone) != 0:
+            raise ValueError("search_topk takes a scalar excl_zone (or "
+                             "None for the per-query default); per-query "
+                             "zone arrays run on engine.sdtw's chunked "
+                             "path")
+        mesh = self.mesh is not None or self.mesh_shape is not None
+        if mesh and self.prune:
+            raise ValueError("mesh= runs the sharded engine over every "
+                             "chunk; pass prune=False explicitly (the LB "
+                             "cascade is single-process)")
+        if self.engine_impl not in SEARCH_ENGINE_IMPLS:
+            raise ValueError(f"engine_impl must be 'auto', 'rowscan' or "
+                             f"'pallas', got {self.engine_impl!r}")
+        has_excl = self.excl_lo is not None or self.excl_hi is not None
+        if self.engine_impl == "pallas" and has_excl:
+            raise ValueError("the pallas kernel does not support per-query "
+                             "exclusion zones; use engine_impl='rowscan'")
+        if isinstance(self.queries, (list, tuple)) and self.qlens is not None:
+            raise ValueError("qlens is implied by ragged (list) queries")
+        if mesh:
+            raise _not_ported("search_topk(mesh=) (the sharded engine)", 12)
+        return self
+
+    def normalized(self) -> "SdtwRequest":
+        """Validate and return the canonical form. The reference resolves
+        ``mesh_shape`` to a mesh here; the port has no meshes yet, so a
+        valid request is already canonical."""
+        return self.validate()
+
     def run(self):
-        """Validate and execute — identical to calling ``engine.sdtw``."""
+        """Validate and execute — identical to calling the keyword front
+        door (``engine.sdtw`` / ``search_topk``)."""
+        req = self.normalized()
+        if req.op == "search_topk":
+            from repro_torch.search import search as search_mod
+            return search_mod._execute_search(req)
         from repro_torch.core import engine
-        return engine._execute_sdtw(self.validate())
+        return engine._execute_sdtw(req)
+
+
+def _reject_unknown(cls, kwargs):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(kwargs) - fields)
+    if unknown:
+        raise ValueError(
+            f"unknown {cls.__name__} argument(s) {unknown}; valid "
+            f"arguments are {sorted(fields)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamRequest:
+    """One streaming session, as data — ``engine.stream``'s argument
+    surface. ``open()`` validates and returns the live ``StreamSession``,
+    exactly as the keyword front door would. ``device`` is where the
+    session's queries and carries live (``None``: the CUDA device)."""
+    queries: Any = None
+    qlens: Any = None
+    metric: str = "abs_diff"
+    impl: str = "auto"
+    chunk: Optional[int] = None
+    mesh: Any = None
+    mesh_shape: Any = None
+    ref_axis: str = "ref"
+    n_micro: Optional[int] = None
+    top_k: Optional[int] = None
+    excl_zone: Any = None
+    excl_mode: str = "end"
+    return_spans: bool = False
+    return_positions: bool = False
+    excl_lo: Any = None
+    excl_hi: Any = None
+    prune: bool = False
+    span_cap: Optional[int] = None
+    alert_threshold: Any = None
+    on_alert: Any = None
+    cache: Any = None
+    ref_key: Any = None
+    block_q: Optional[int] = None
+    block_m: Optional[int] = None
+    device: Any = None
+
+    @classmethod
+    def from_kwargs(cls, **kwargs) -> "StreamRequest":
+        """Build a request from a kwargs dict, rejecting unknown keys."""
+        _reject_unknown(cls, kwargs)
+        return cls(**kwargs)
+
+    def validate(self) -> "StreamRequest":
+        """Front-door checks for ``engine.stream``: the sharded session is
+        not ported (item 12); then the session-argument checks."""
+        if self.impl not in STREAM_IMPLS:
+            raise ValueError(
+                f"impl must be 'auto', 'rowscan', 'pallas' or 'sharded' "
+                f"for streaming, got {self.impl!r}")
+        sharded = (self.mesh is not None or self.mesh_shape is not None
+                   or self.impl == "sharded")
+        if self.n_micro is not None and not sharded:
+            raise ValueError("n_micro= schedules the sharded systolic "
+                             "pipeline; pass mesh=/mesh_shape= (or "
+                             "impl='sharded') or drop n_micro=")
+        if sharded:
+            raise _not_ported("the sharded stream session (mesh=, "
+                              "mesh_shape=, impl='sharded')", 12)
+        return self.validate_session()
+
+    def validate_session(self) -> "StreamRequest":
+        """The single-process session checks — ``StreamSession.__init__``
+        delegates here, so a directly constructed session and the
+        ``engine.stream`` front door cannot drift."""
+        if self.excl_mode not in EXCL_MODES:
+            raise ValueError(f"excl_mode must be one of {EXCL_MODES}, got "
+                             f"{self.excl_mode!r}")
+        if self.top_k is not None and (not isinstance(self.top_k, int)
+                                       or self.top_k < 1):
+            raise ValueError(f"top_k must be a positive int, got "
+                             f"{self.top_k!r}")
+        if self.excl_mode == "span" and self.top_k is None \
+                and not self.return_spans:
+            raise ValueError("excl_mode='span' only affects top-K "
+                             "suppression; pass top_k=")
+        if (self.excl_lo is None) != (self.excl_hi is None):
+            raise ValueError("excl_lo and excl_hi must be given together")
+        if self.prune and self.top_k is None:
+            raise ValueError("prune=True reports the top-K heap only; "
+                             "pass top_k=")
+        if self.prune and self.alert_threshold is not None:
+            raise ValueError("alerts need every tile's candidate row, "
+                             "which pruning skips; use prune=False for a "
+                             "threshold monitor")
+        if self.impl == "pallas" and self.excl_lo is not None:
+            raise ValueError("the pallas kernel does not support "
+                             "exclusion zones; use impl='rowscan'")
+        if self.chunk is not None and int(self.chunk) < 1:
+            raise ValueError(f"chunk must be >= 1, got {int(self.chunk)}")
+        return self
+
+    def open(self):
+        """Validate and open the session — identical to
+        ``engine.stream(**kwargs)``. ``impl='auto'`` takes the kernel on a
+        CUDA device unless a per-query exclusion range is set (top-K
+        heaps, alerts and pruning all score on its last-row capture), and
+        the rowscan tile loop elsewhere."""
+        from repro_torch.device import resolve_device
+        from repro_torch.stream import StreamSession
+        self.validate()
+        dev = resolve_device(self.device)
+        impl = self.impl
+        if impl == "auto":
+            impl = ("pallas" if dev.type == "cuda" and self.excl_lo is None
+                    else "rowscan")
+        return StreamSession(
+            self.queries, qlens=self.qlens, metric=self.metric,
+            chunk=self.chunk, impl=impl, top_k=self.top_k,
+            excl_zone=self.excl_zone, excl_mode=self.excl_mode,
+            return_spans=self.return_spans,
+            return_positions=self.return_positions,
+            excl_lo=self.excl_lo, excl_hi=self.excl_hi, prune=self.prune,
+            span_cap=self.span_cap, alert_threshold=self.alert_threshold,
+            on_alert=self.on_alert, cache=self.cache, ref_key=self.ref_key,
+            block_q=self.block_q, block_m=self.block_m, device=dev)

@@ -6,6 +6,7 @@ and refuses to run silently on the CPU when no CUDA device is present.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,9 @@ def as_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
     """A tensor on ``device`` from a tensor, numpy array or Python value
     (numpy dtypes are kept; ``dtype`` converts)."""
     return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+
+def to_numpy(x) -> np.ndarray:
+    """A numpy array from a tensor (copied to the host) or array-like."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)

@@ -200,7 +200,9 @@ def test_validation_messages_match_reference(kw, exc):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "item 12"), (dict(mesh_shape=(2,)), "item 12"),
-    (dict(impl="sharded"), "item 12"), (dict(op="search_topk"), "item 8"),
+    (dict(impl="sharded"), "item 12"),
+    (dict(op="search_topk", top_k=1, prune=False, mesh=object()),
+     "item 12"),
     (dict(tune="model"), "item 11"), (dict(tune="measure"), "item 11"),
     (dict(explain=True), "item 11"),
 ])
