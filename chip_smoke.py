@@ -17,7 +17,9 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      ``ref_lead``/``ref_len`` masks, carry chaining, block policy
      invariance, N up to 1536, and N = 5000 on the wavefront kernel in
      shared memory and in its global scratch — int32 and integer-valued
-     float32 bitwise, real-valued float32 within ``rtol=1e-5``;
+     float32 bitwise, real-valued float32 within ``rtol=1e-5``; then the
+     ban (per-query column bans across slice edges, at a negative offset,
+     empty and total), every variant, bitwise;
   4. the main path at full size: ``matsa(mode="query_filtering")`` on the
      paper's Table V "Human" workload (131,072 int32 queries of length
      120 against 7,997 samples), checked against the numpy oracle on 8
@@ -36,6 +38,8 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      ragged lengths (its generic harvest); both kernels, every variant,
      at the other four Table V shapes cut to 4,224 queries (which is the
      faster: ``kernel="auto"``'s routing), checked equal to each other;
+     the ban variants at ECG-cut with a self-join zone per query, both
+     kernels held equal on every query and to the plain version on 32;
   9. pruned top-K search (``search_topk``, k = 3): all Human queries at
      full size, held on 64 queries against the exact search and the
      plain route (``engine_impl='rowscan'``); the ECG-cut batch, its top-1
@@ -47,14 +51,31 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      pruned stream of the 8 level-shifted queries against the exact one;
  11. alignment (``engine.align``) of 64 Human and 4 ECG-cut queries: every
      path valid and replaying its distance bitwise;
+ 12. the self-join at ECG's length: ``matsa(mode="self_join")`` with
+     window and stride 512 (3,515 windows, the exact profile in batches
+     of 256, every launch the rows kernel's K3 with the ban); its first
+     batch (256 windows, 4 slices of 8,192 through the carry) held
+     against the plain version slice by slice; 8 windows through the
+     direct route (K1 and K2 with their bans) and their last rows held
+     bitwise against the plain version over the whole series;
+     the profile again in one batch of 4,096, bitwise; a self-join of
+     1,600-sample windows on 100,000 samples (the wavefront kernel's
+     bans, 4 windows against the plain version);
+ 13. the pruned profile (``matrix_profile``, k = 3) of the level-shifted
+     series of ECG's length: its distances against the exact profile;
+ 14. ``StreamProfile(512, stride=512, k=3)`` over 262,144 samples, fed in
+     ragged pieces with a mid-stream flush, against
+     ``matrix_profile(prune=False)`` of the same prefix;
      then the JSON lines.
 
-Phases 4-6 and 9-11 run on the rows kernel (``kernel="auto"``), phase 7
-on the wavefront kernel; each path reads the launch counts set to 0 just
-before it (``launches_by_path`` in the JSON line).
+Phases 4-6 and 9-14 run on the rows kernel (``kernel="auto"``), phase 7
+and the long self-join on the wavefront kernel; each path reads the
+launch counts set to 0 just before it (``launches_by_path`` in the JSON
+line).
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches on its path, its largest difference
-from the plain version, its time, the plain version's time and its bound.
+lists every kernel variant — with and without the ban — with its launches
+on its path, its largest difference from the plain version, its time,
+the plain version's time and its bound.
 Phase 2 also logs each library's registers and spills (``-Xptxas -v``)
 and the static SASS instruction count of the main path's steady-state
 loops (``cuobjdump -sass``).
@@ -103,20 +124,27 @@ def smi(query: str) -> str:
 
 #: Main-path instantiations whose steady-state loop phase 2 counts:
 #: (library, kernel name pattern in cuobjdump's listing, label, rows per
-#: loop iteration). Rows kernel: <T, TRACK, SQUARE, R>; wavefront:
-#: <T, TRACK, LASTROW, SQUARE, SCRATCH>, one row per thread per diagonal
-#: at Human and ECG (threads per query >= N).
+#: loop iteration). Rows kernel: <T, TRACK, SQUARE, R, BAN>; wavefront:
+#: <T, TRACK, LASTROW, SQUARE, SCRATCH, BAN>, one row per thread per
+#: diagonal at Human and ECG (threads per query >= N). BAN is the
+#: per-query column ban; the self-join runs the rows kernel's K2/K3
+#: instantiation with it (K2 and K3 share one: the last-row capture is a
+#: runtime pointer there).
 SASS_LOOPS = (
-    ("sdtw_rows", r"sdtw_rows_kernelIiLb0ELb0ELi4EE", "rows K1 R=4 (Human)",
-     4),
-    ("sdtw_rows", r"sdtw_rows_kernelIiLb1ELb0ELi4EE", "rows K2 R=4 (Human)",
-     4),
-    ("sdtw_rows", r"sdtw_rows_kernelIiLb0ELb0ELi16EE", "rows K1 R=16 (ECG)",
-     16),
-    ("sdtw_rows", r"sdtw_rows_kernelIiLb1ELb0ELi16EE", "rows K2 R=16 (ECG)",
-     16),
-    ("sdtw", r"sdtw_wavefront_kernelIiLb0ELb0ELb0ELb0EE", "wavefront K1", 1),
-    ("sdtw", r"sdtw_wavefront_kernelIiLb1ELb0ELb0ELb0EE", "wavefront K2", 1),
+    ("sdtw_rows", r"sdtw_rows_kernelIiLb0ELb0ELi4ELb0EE",
+     "rows K1 R=4 (Human)", 4),
+    ("sdtw_rows", r"sdtw_rows_kernelIiLb1ELb0ELi4ELb0EE",
+     "rows K2 R=4 (Human)", 4),
+    ("sdtw_rows", r"sdtw_rows_kernelIiLb0ELb0ELi16ELb0EE",
+     "rows K1 R=16 (ECG)", 16),
+    ("sdtw_rows", r"sdtw_rows_kernelIiLb1ELb0ELi16ELb0EE",
+     "rows K2 R=16 (ECG)", 16),
+    ("sdtw_rows", r"sdtw_rows_kernelIiLb1ELb0ELi16ELb1EE",
+     "rows K2/K3 R=16 with the ban (ECG self-join)", 16),
+    ("sdtw", r"sdtw_wavefront_kernelIiLb0ELb0ELb0ELb0ELb0EE",
+     "wavefront K1", 1),
+    ("sdtw", r"sdtw_wavefront_kernelIiLb1ELb0ELb0ELb0ELb0EE",
+     "wavefront K2", 1),
 )
 
 
@@ -220,8 +248,11 @@ class Harness:
 
     def plain_raw(self, q, r, qlens=None, metric="abs_diff", track=False,
                   lastrow=False, carry=None, ref_offset=0, ref_len=None,
-                  ref_lead=0):
+                  ref_lead=0, excl_lo=None, excl_hi=None):
         q, r, qlens, acc = self.prep(q, r, qlens)
+        if excl_lo is not None:
+            excl_lo, excl_hi = (self.torch.as_tensor(x).to(
+                self.dev, self.torch.int32) for x in (excl_lo, excl_hi))
         if carry is None:
             carry = self.ops.kernel_carry_init(q.shape[0], q.shape[1], acc,
                                                track, self.dev)
@@ -230,7 +261,8 @@ class Harness:
         else:
             (bcol, best, pos), bstart, start = carry, None, None
         return self.plain(q, r, qlens, metric, bcol, best, pos, bstart, start,
-                          ref_offset, ref_len, ref_lead, lastrow)
+                          ref_offset, ref_len, ref_lead, lastrow, excl_lo,
+                          excl_hi)
 
     def compare(self, name, got, want, exact=True):
         """Bitwise (``exact``) or, for real-valued float32, distances
@@ -260,7 +292,8 @@ class Harness:
         for kernel, launch in configs:
             got = self.kernel(q, r, qlens, metric, track, lastrow,
                               kernel=kernel, **launch, **kw)
-            self.record(self.ops.variant(track, lastrow, kernel),
+            ban = kw.get("excl_lo") is not None
+            self.record(self.ops.variant(track, lastrow, kernel, ban),
                         self.compare(f"{kernel} {launch} {name}", got, want,
                                      exact))
         return len(configs)
@@ -359,6 +392,80 @@ def phase_kernels(h, np, rng):
     return n_checks
 
 
+def bans_for(np, rng, b: int, lo_col: int, hi_col: int):
+    """(b,) int32 banned global column ranges around the slice
+    ``[lo_col, hi_col)``: across either edge, inside, outside, empty, and
+    one query banned everywhere."""
+    lo = rng.integers(lo_col - 200, hi_col + 50, b)
+    hi = lo + rng.integers(0, 900, b)
+    lo[0], hi[0] = 0, 2**31 - 1                  # fully banned
+    if b > 1:
+        hi[1] = lo[1]                            # empty
+    return lo.astype(np.int32), hi.astype(np.int32)
+
+
+def phase_bans(h, np, rng):
+    """Phase 3 (the ban): every variant of both kernels with per-query
+    column bans against the plain version with the same bans."""
+    n_checks = 0
+    modes = [(False, False), (True, False), (False, True), (True, True)]
+    for dtype, metric in ((np.int32, "abs_diff"), (np.int32, "square_diff"),
+                          (np.float32, "abs_diff")):
+        for b, n, m, off, lead, rlen in ((7, 5, 300, 100, 0, 300),
+                                         (8, 120, 1000, -200, 200, 1000),
+                                         (8, 512, 3000, 4000, 0, 2500)):
+            q = rng.integers(-60, 60, (b, n)).astype(dtype)
+            r = rng.integers(-60, 60, m).astype(dtype)
+            qlens = rng.integers(1, n + 1, b).astype(np.int32)
+            qlens[:2] = n
+            lo, hi = bans_for(np, rng, b, off, off + m)
+            for track, lastrow in modes:
+                n_checks += h.check(
+                    f"ban {dtype.__name__} {metric} {(b, n, m)} offset="
+                    f"{off} track={track} lastrow={lastrow}", q, r, qlens,
+                    metric, track, lastrow, ref_offset=off, ref_lead=lead,
+                    ref_len=rlen, excl_lo=lo, excl_hi=hi)
+    # N = 1536 (the rows kernel's last R) and N = 5000 (the wavefront in
+    # shared memory and in its global scratch), K1 and K3 with the start
+    # lane (every line of the ban is in both).
+    for n, m, configs in ((1536, 2500, None),
+                          (5000, 600, [("wavefront", {}),
+                                       ("wavefront", dict(block_q=2))])):
+        q = rng.integers(-60, 60, (3, n)).astype(np.int32)
+        r = rng.integers(-60, 60, m).astype(np.int32)
+        lo, hi = bans_for(np, rng, 3, 0, m)
+        for track, lastrow in (modes[0], modes[3]):
+            n_checks += h.check(
+                f"ban N={n} track={track} lastrow={lastrow}", q, r, None,
+                "abs_diff", track, lastrow, configs=configs, excl_lo=lo,
+                excl_hi=hi)
+    # Carry chaining with bans across slice edges == one launch.
+    q = rng.integers(-60, 60, (9, 120)).astype(np.int32)
+    r = rng.integers(-60, 60, 2000).astype(np.int32)
+    lo, hi = bans_for(np, rng, 9, 0, 2000)
+    for kernel in h.ops.KERNELS:
+        for track in (False, True):
+            whole = h.kernel(q, r, track=track, kernel=kernel, excl_lo=lo,
+                             excl_hi=hi)
+            carry = None
+            for off in range(0, 2000, 700):
+                sl = np.zeros(700, np.int32)
+                cl = min(700, 2000 - off)
+                sl[:cl] = r[off:off + cl]
+                _, carry = h.ops.sdtw_cuda(q, sl, carry=carry, ref_offset=off,
+                                           ref_len=cl, return_carry=True,
+                                           track_start=track, device=h.dev,
+                                           kernel=kernel, excl_lo=lo,
+                                           excl_hi=hi)
+            chained = ((carry[2], carry[3], carry[4], carry[0], carry[1])
+                       if track else (carry[1], carry[2], None, carry[0],
+                                      None))
+            h.compare(f"{kernel} ban carry chaining track={track}", chained,
+                      whole[:5])
+            n_checks += 1
+    return n_checks
+
+
 class KernelTimer:
     """CUDA events around every ``sdtw_cuda`` call the port makes while
     active (the package attribute the search and stream layers call is
@@ -386,6 +493,39 @@ class KernelTimer:
     def ms(self) -> float:
         self.torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+class NoRowScan:
+    """Fails the path if the plain PyTorch schedules ran while active: the
+    row scan's chunk and batch functions and the wavefront schedule of
+    ``repro_torch.core.sdtw`` (every plain DP route goes through one of
+    them) are wrapped with a counter."""
+    NAMES = ("rowscan_chunk_batch", "rowscan_batch", "wavefront_batch")
+
+    def __init__(self, name):
+        self.name, self.calls = name, 0
+
+    def __enter__(self):
+        import importlib
+        # (``repro_torch.core.sdtw`` the package attribute is the engine's
+        # ``sdtw`` function; the module is what the schedules live in.)
+        core_sdtw = importlib.import_module("repro_torch.core.sdtw")
+        self.mod, self.orig = core_sdtw, {}
+        for fn in self.NAMES:
+            self.orig[fn] = getattr(core_sdtw, fn)
+
+            def counted(*a, _fn=self.orig[fn], **kw):
+                self.calls += 1
+                return _fn(*a, **kw)
+            setattr(core_sdtw, fn, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for fn, orig in self.orig.items():
+            setattr(self.mod, fn, orig)
+        if exc[0] is None and self.calls:
+            raise AssertionError(f"{self.name}: {self.calls} calls of the "
+                                 f"plain row scan on the card's path")
 
 
 def level_shifted(np, rng, m: int, seg: int = 1 << 16):
@@ -507,6 +647,12 @@ def phase_stream(torch, np, ops, kpkg, ecg, ls8, dev):
             s.feed(ref[off:off + piece])
             if i == 8:
                 snap = s.snapshot()
+        # Alerts fire for processed tiles only (as in the reference;
+        # results() reads the buffered tail on a copy and raises none), so
+        # the tail is flushed before the alerts are held against the
+        # offline distances over the whole reference.
+        done = len(ref) // s.chunk * s.chunk      # samples in whole tiles
+        s.flush()
         res = s.results()
         torch.cuda.synchronize()
     wall = time.time() - t0
@@ -521,13 +667,18 @@ def phase_stream(torch, np, ops, kpkg, ecg, ls8, dev):
         if ev.distance > thr:
             raise AssertionError(f"alert above the threshold: {ev}")
         best[ev.query] = min(best.get(ev.query, ev.distance), ev.distance)
-    d = de.cpu().numpy()
+    d, ee_np = de.cpu().numpy(), ee.cpu().numpy()
     below = {int(i) for i in np.nonzero(d <= thr)[0]}
+    in_tail = [i for i in sorted(below) if ee_np[i] >= done]
     if set(best) != below or any(best[i] != d[i] for i in below):
-        raise AssertionError("alerts disagree with the offline distances")
+        raise AssertionError(f"alerts disagree with the offline distances: "
+                             f"{sorted(set(best) ^ below)} differ in the "
+                             f"set, {[i for i in below if best.get(i) != d[i]]}"
+                             f" in the distance")
     restored = StreamSession.restore(snap, device=dev)
     at = restored.samples_seen
     restored.feed(ref[at:])
+    restored.flush()
     res2 = restored.results()
     for f in ("distances", "starts", "positions"):
         if not np.array_equal(getattr(res2, f), getattr(res, f)):
@@ -540,8 +691,10 @@ def phase_stream(torch, np, ops, kpkg, ecg, ls8, dev):
         f"{timer.ms():.3f} ms ({timer.ms() / 1e3 / wall:.1%}), tiles "
         f"{res.tiles_total} processed {res.tiles_processed}, "
         f"{len(s.alerts)} alerts (threshold {thr:.0f}) for {len(below)} "
-        f"queries; launches {launches}; top-1 == phase 6 bitwise, "
-        f"snapshot after piece 9 restored at {at} samples == bitwise")
+        f"queries ({len(in_tail)} of them with their best match ending in "
+        f"the last {len(ref) - done} samples, alerted at the flush); "
+        f"launches {launches}; top-1 == phase 6 bitwise, snapshot after "
+        f"piece 9 restored at {at} samples == bitwise")
 
     q8, r8 = ls8
     r8 = r8.cpu().numpy()
@@ -566,6 +719,261 @@ def phase_stream(torch, np, ops, kpkg, ecg, ls8, dev):
     log(f"phase 10: pruned stream, 8 level-shifted queries: {pwall:.3f} s "
         f"wall, kernel {ptimer.ms():.3f} ms, {_counters(pres, 'tiles')}; "
         f"distances == exact stream (spans equal on {spans}/8)")
+    return launches
+
+
+def _same_profile(name, got, want, fields=None):
+    """Two ProfileResults bitwise in ``fields`` (default every per-window
+    array and the motif/discord selections)."""
+    import numpy as np
+    for f in fields or ("starts", "nn_dist", "nn_start", "nn_end",
+                        "nn_window", "motif_a", "motif_b", "motif_dist",
+                        "discord_idx", "discord_dist"):
+        g, w = getattr(got, f), getattr(want, f)
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"{name}: {f} differ")
+
+
+def _only(ops, key, name):
+    """The launch counts since the last reset: ``key`` at least once and
+    nothing else."""
+    got = dict(ops.LAUNCHES)
+    if got[key] < 1 or sum(got.values()) != got[key]:
+        raise AssertionError(f"{name}: expected only {key} launches, got "
+                             f"{ {k: v for k, v in got.items() if v} }")
+    return got
+
+
+def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
+    """Phase 12: ``matsa(mode='self_join')`` at ECG's length — window 512
+    (ECG's Table V query length), stride 512, the exact profile in the
+    default batches of 256 — then 8 of its windows through the direct
+    route (``engine.sdtw`` with their bans) against the plain version over
+    the whole series, and the same profile in one batch of 4,096. Returns
+    the launches by path and the profile."""
+    from repro_torch.core import engine
+    from repro_torch.core.matsa_api import matsa
+    from repro_torch.core.sdtw import self_join_exclusion
+    from repro_torch.search import matrix_profile
+    w = 512
+    st = torch.as_tensor(series, device=dev)
+    launches = {}
+    ops.reset_launches()
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as timer, NoRowScan("self-join"):
+        res = matsa(series, mode="self_join", window=w, stride=w, device=dev)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    kernel_ms = timer.ms()
+    prof = res.profile
+    nw = len(prof.starts)
+    want = -(-nw // 256) * -(-len(series) // prof.chunk)
+    launches["self_join_ecg"] = _only(ops, "rows_lastrow_ban", "self-join")
+    if launches["self_join_ecg"]["rows_lastrow_ban"] != want:
+        raise AssertionError(f"self-join: {want} launches expected")
+    d = res.distances
+    if d.shape != (nw,) or d.dtype != torch.int32 or d.device != st.device:
+        raise AssertionError(f"self-join: unexpected result {d.shape} "
+                             f"{d.dtype} on {d.device}")
+    if not prof.valid.all() or not (prof.nn_dist < 2**29).all():
+        raise AssertionError("self-join: a window without a neighbour")
+
+    # One batch of the path as ``_kernel_topk_scan`` launches it: the first
+    # 256 windows with their bans, slices of ``prof.chunk`` columns through
+    # the carry, held against the plain version slice by slice (each on
+    # its own carry) over the first 4 slices (the plain version's time
+    # grows with the columns).
+    c, nb, nsl = prof.chunk, min(256, nw), 4
+    s_b = prof.starts[:nb]
+    qb = torch.as_tensor(series[s_b[:, None] + np.arange(w)], device=dev)
+    lob, hib = (x.to(dev) for x in self_join_exclusion(s_b, w))
+    kc = pc = None
+    t0 = time.time()
+    for off in range(0, nsl * c, c):
+        kw_ = dict(track=True, lastrow=True, ref_offset=off, ref_len=c,
+                   excl_lo=lob, excl_hi=hib)
+        got = h.kernel(qb, st[off:off + c], carry=kc, **kw_)
+        ref = h.plain_raw(qb, st[off:off + c], carry=pc, **kw_)
+        h.record("rows_lastrow_ban", h.compare(
+            f"self-join batch of {nb}, slice at {off}", got, ref))
+        kc = (got[3], got[4], got[0], got[1], got[2])
+        pc = (ref[3], ref[4], ref[0], ref[1], ref[2])
+    del got, ref, kc, pc
+    log(f"phase 12: one batch of the path ({nb} windows with their bans, "
+        f"{nsl} slices of {c} through the carry) == plain version slice by "
+        f"slice, every output ({time.time() - t0:.1f} s)")
+    cells = nw * w * len(series)
+    bound_s = cells * OPS_PER_CELL["span"] / int32_rate
+    log(f"phase 12: matsa(self_join) window {w} stride {w} on {len(series)}"
+        f" samples: {nw} windows, {wall:.3f} s wall, kernel "
+        f"{kernel_ms:.3f} ms ({kernel_ms / 1e3 / wall:.1%}), "
+        f"{cells:.4g} cells ({cells / wall:.4g} cells/s, int32 bound "
+        f"{bound_s:.3f} s), launches "
+        f"{launches['self_join_ecg']['rows_lastrow_ban']} (chunk "
+        f"{prof.chunk}); motifs {prof.motifs}, discords {prof.discords}")
+
+    # 8 windows through the direct route, against the plain version with
+    # their bans over the whole series (one plain run gives every output).
+    idx = np.linspace(0, nw - 1, 8).astype(np.int64)
+    s8 = prof.starts[idx]
+    q8 = torch.as_tensor(series[s8[:, None] + np.arange(w)], device=dev)
+    lo8, hi8 = self_join_exclusion(s8, w)
+    ops.reset_launches()
+    d8, st8, e8 = engine.sdtw(q8, st, excl_lo=lo8, excl_hi=hi8,
+                              return_spans=True, device=dev)
+    dp8, ep8 = engine.sdtw(q8, st, excl_lo=lo8, excl_hi=hi8,
+                           return_positions=True, device=dev)
+    torch.cuda.synchronize()
+    launches["self_join_windows_ecg"] = dict(ops.LAUNCHES)
+    if (launches["self_join_windows_ecg"]["rows_span_ban"] != 1
+            or launches["self_join_windows_ecg"]["rows_plain_ban"] != 1):
+        raise AssertionError(f"direct route missed the kernel: "
+                             f"{launches['self_join_windows_ecg']}")
+    raw_k = h.kernel(q8, st, track=True, lastrow=True, excl_lo=lo8,
+                     excl_hi=hi8)
+    raw_p = h.plain_raw(q8, st, track=True, lastrow=True, excl_lo=lo8,
+                        excl_hi=hi8)
+    h.record("rows_span_ban", h.compare(
+        "8 self-join windows spans vs plain", (d8, e8, st8), raw_p[:3]))
+    h.record("rows_plain_ban", h.compare(
+        "8 self-join windows distances vs plain", (dp8, ep8), raw_p[:2]))
+    h.record("rows_lastrow_ban", h.compare(
+        "8 self-join windows last row vs plain", raw_k, raw_p))
+    for f, got in (("nn_dist", d8), ("nn_start", st8), ("nn_end", e8)):
+        if not np.array_equal(getattr(prof, f)[idx], got.cpu().numpy()):
+            raise AssertionError(f"self-join {f} != the direct route")
+    del raw_k, raw_p
+
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as timer:
+        whole = matrix_profile(series, w, stride=w, k=3, prune=False,
+                               batch=4096, device=dev)
+    wall_4096 = time.time() - t0
+    _same_profile("batch 4096 vs 256", whole, prof,
+                  ("starts", "nn_dist", "nn_start", "nn_end", "nn_window"))
+    log(f"phase 12: 8 windows (direct route, K1 and K2 with bans) and their"
+        f" last rows == plain version over the whole series, == the "
+        f"profile; batch 4096 (one launch a chunk): {wall_4096:.3f} s wall, "
+        f"kernel {timer.ms():.3f} ms, bitwise batch 256; k=3: motifs "
+        f"{whole.motifs}, discords {whole.discords}")
+    return launches, {"wall_s": wall, "kernel_ms": kernel_ms,
+                      "wall_4096_s": wall_4096, "windows": nw}
+
+
+def phase_self_join_long(torch, np, ops, h, series, dev):
+    """Phase 12 (long windows): a self-join of 1,600-sample windows, past
+    the rows kernel: the wavefront kernel's ban variants against the plain
+    version. Returns its launches by path."""
+    from repro_torch.core import engine
+    from repro_torch.core.matsa_api import matsa
+    from repro_torch.core.sdtw import self_join_exclusion
+    w = 1600
+    st = torch.as_tensor(series, device=dev)
+    launches = {}
+    ops.reset_launches()
+    with NoRowScan("long self-join"):
+        res = matsa(series, mode="self_join", window=w, stride=w,
+                    device=dev)
+        torch.cuda.synchronize()
+    launches["self_join_long"] = _only(ops, "wavefront_lastrow_ban",
+                                       "long self-join")
+    prof = res.profile
+    idx = np.unique(np.linspace(0, len(prof.starts) - 1, 4).astype(int))
+    s4 = prof.starts[idx]
+    q4 = torch.as_tensor(series[s4[:, None] + np.arange(w)], device=dev)
+    lo4, hi4 = self_join_exclusion(s4, w)
+    ops.reset_launches()
+    d4, st4, e4 = engine.sdtw(q4, st, excl_lo=lo4, excl_hi=hi4,
+                              return_spans=True, device=dev)
+    dp4, ep4 = engine.sdtw(q4, st, excl_lo=lo4, excl_hi=hi4,
+                           return_positions=True, device=dev)
+    torch.cuda.synchronize()
+    launches["self_join_long_windows"] = dict(ops.LAUNCHES)
+    raw_k = h.kernel(q4, st, track=True, lastrow=True, excl_lo=lo4,
+                     excl_hi=hi4)
+    raw_p = h.plain_raw(q4, st, track=True, lastrow=True, excl_lo=lo4,
+                        excl_hi=hi4)
+    h.record("wavefront_span_ban", h.compare(
+        "4 long windows spans vs plain", (d4, e4, st4), raw_p[:3]))
+    h.record("wavefront_plain_ban", h.compare(
+        "4 long windows distances vs plain", (dp4, ep4), raw_p[:2]))
+    h.record("wavefront_lastrow_ban", h.compare(
+        "4 long windows last row vs plain", raw_k, raw_p))
+    for f, got in (("nn_dist", d4), ("nn_start", st4), ("nn_end", e4)):
+        if not np.array_equal(getattr(prof, f)[idx], got.cpu().numpy()):
+            raise AssertionError(f"long self-join {f} != the direct route")
+    la = launches["self_join_long_windows"]
+    if la["wavefront_span_ban"] != 1 or la["wavefront_plain_ban"] != 1:
+        raise AssertionError(f"long windows missed the wavefront: {la}")
+    log(f"phase 12: self-join of {len(prof.starts)} windows of {w} on "
+        f"{len(series)} samples on the wavefront kernel "
+        f"({launches['self_join_long']['wavefront_lastrow_ban']} launches "
+        f"with the ban); 4 windows (K1, K2, K3 with bans) == plain version "
+        f"and == the profile")
+    return launches
+
+
+def phase_profile_pruned(torch, np, ops, kpkg, ls_ref, dev):
+    """Phase 13: the pruned profile (``matrix_profile``'s default
+    ``prune=True``) of the level-shifted series at ECG's length, window
+    and stride 512, k = 3; its distances against the exact profile."""
+    from repro_torch.search import matrix_profile
+    ops.reset_launches()
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as timer, NoRowScan("pruned profile"):
+        pr = matrix_profile(ls_ref, 512, stride=512, k=3, device=dev)
+    wall = time.time() - t0
+    launches = _only(ops, "rows_lastrow_ban", "pruned profile")
+    t0 = time.time()
+    exact = matrix_profile(ls_ref, 512, stride=512, k=3, prune=False,
+                           batch=4096, device=dev)
+    wall_exact = time.time() - t0
+    _same_profile("pruned vs exact profile", pr, exact,
+                  ("starts", "nn_dist"))
+    if pr.chunks_pruned < 1:
+        raise AssertionError("pruned profile pruned nothing")
+    spans = int(((pr.nn_start == exact.nn_start)
+                 & (pr.nn_end == exact.nn_end)).sum())
+    log(f"phase 13: pruned matrix_profile, {len(pr.starts)} windows of 512 "
+        f"on the level-shifted series: {wall:.3f} s wall, kernel "
+        f"{timer.ms():.3f} ms ({timer.ms() / 1e3 / wall:.1%}), chunks "
+        f"total {pr.chunks_total} pruned {pr.chunks_pruned} (kim "
+        f"{pr.chunks_pruned_kim}, keogh {pr.chunks_pruned_keogh}) processed "
+        f"{pr.chunks_processed}, launches {launches['rows_lastrow_ban']}; "
+        f"distances == exact profile ({wall_exact:.3f} s, batch 4096; "
+        f"spans equal on {spans}/{len(pr.starts)}); motifs {pr.motifs}, "
+        f"discords {pr.discords}")
+    return launches
+
+
+def phase_stream_profile(torch, np, ops, kpkg, series, dev):
+    """Phase 14: ``StreamProfile(512, stride=512, k=3)`` over the first
+    262,144 samples, fed in ragged pieces with one mid-stream flush,
+    against ``matrix_profile(prune=False)`` of the same prefix."""
+    from repro_torch.search import matrix_profile
+    from repro_torch.stream import StreamProfile
+    pre = series[:262_144]
+    cuts = [0, 30_000, 61_234, 100_000, 150_001, 200_000, len(pre)]
+    ops.reset_launches()
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as timer, NoRowScan("stream profile"):
+        sp = StreamProfile(512, stride=512, k=3, device=dev)
+        for i, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+            sp.feed(pre[a:b])
+            if i == 2:
+                sp.flush()
+        res = sp.results()
+    wall = time.time() - t0
+    launches = _only(ops, "rows_lastrow_ban", "stream profile")
+    want = matrix_profile(pre, 512, stride=512, k=3, prune=False,
+                          device=dev)
+    _same_profile("stream profile vs matrix_profile", res, want)
+    log(f"phase 14: StreamProfile(512, stride=512, k=3) over {len(pre)} "
+        f"samples in {len(cuts) - 1} pieces, flush after piece 3: "
+        f"{wall:.3f} s wall, kernel {timer.ms():.3f} ms "
+        f"({timer.ms() / 1e3 / wall:.1%}), {sp.tiles_processed} tiles, "
+        f"{len(res.starts)} windows, launches {launches['rows_lastrow_ban']}"
+        f"; == matrix_profile(prune=False) bitwise")
     return launches
 
 
@@ -705,6 +1113,10 @@ def main() -> int:
     log(f"phase 3: {n_checks} kernel-vs-plain checks passed in "
         f"{time.time() - t0:.1f} s (int32 and integer-valued float32 "
         f"bitwise; real-valued float32 rtol=1e-5)")
+    t0 = time.time()
+    n_checks = phase_bans(h, np, rng)
+    log(f"phase 3: {n_checks} kernel-vs-plain checks with per-query column "
+        f"bans passed in {time.time() - t0:.1f} s (bitwise)")
 
     # Phase 4: the main path at full size — Table V "Human".
     hw = load_real_workload_shapes()["Human"]
@@ -881,6 +1293,47 @@ def main() -> int:
     log(f"timing rows_plain at Human by query length (runs alternated): "
         f"{harvest_ms}")
 
+    # The ban variants at ECG-cut: each query banned on a self-join zone
+    # (window 512 ± 256: 1,024 columns) spread over the reference, the
+    # ranges on the card (so no launch tests them).
+    ban_s = np.linspace(0, me - ne, bq_e).astype(np.int64)
+    ban_lo = torch.as_tensor(np.maximum(ban_s - ne // 2, 0), dtype=torch.int32,
+                             device=dev)
+    ban_hi = torch.as_tensor(ban_s + ne + ne // 2, dtype=torch.int32,
+                             device=dev)
+    banned_cols = int((torch.clamp(ban_hi, max=me) - ban_lo).sum())
+    # Each kernel's output (all queries) is held against the other's, and
+    # its first 32 queries against the timed plain run.
+    for var, track, lastrow in variants:
+        outs = {}
+        for kernel in ops.KERNELS:
+            k_ms = cuda_ms(lambda: ops.sdtw_cuda(
+                qe, re_, return_spans=track, return_lastrow=lastrow,
+                device=dev, kernel=kernel, excl_lo=ban_lo, excl_hi=ban_hi),
+                reps=2)
+            times[f"{kernel}_{var}_ban", "ECG-cut"] = k_ms
+            log(f"timing {kernel}_{var}_ban at ECG-cut: kernel {k_ms:.3f} ms"
+                f" (without the ban {times[f'{kernel}_{var}', 'ECG-cut']:.3f}"
+                f" ms)")
+            outs[kernel] = h.kernel(qe, re_, track=track, lastrow=lastrow,
+                                    kernel=kernel, excl_lo=ban_lo,
+                                    excl_hi=ban_hi)
+        pout = []
+        p_ms = cuda_ms(lambda: pout.append(h.plain_raw(
+            qe[:32], re_, track=track, lastrow=lastrow,
+            excl_lo=ban_lo[:32], excl_hi=ban_hi[:32])), reps=1, warmup=False)
+        plain_times[var + "_ban", "ECG-cut"] = p_ms
+        h.compare(f"{var} with bans at ECG-cut: rows vs wavefront",
+                  outs["rows"], outs["wavefront"])
+        for kernel, out in outs.items():
+            h.record(ops.variant(track, lastrow, kernel, True), h.compare(
+                f"{kernel} {var} with bans at ECG-cut, 32 queries vs plain",
+                [None if x is None else x[:32] for x in out], pout[0]))
+        del outs, pout
+        log(f"timing plain version {var} with bans at ECG-cut: {p_ms:.3f} ms "
+            f"for one batch of 32 of the {bq_e} queries; both kernels equal "
+            f"on all {bq_e} and the plain version on those 32")
+
     # The other Table V shapes, cut to 4,224 queries (32 warps on each of
     # 132 SMs) and a reference of at most 8e10 cells (at least 20 N
     # samples, and at most 6.4e8 last-row entries): which kernel is the
@@ -928,17 +1381,32 @@ def main() -> int:
     path_by["align"] = phase_align(torch, np, ops, kpkg,
                                    (queries[:64], reference),
                                    (q_e[:4], ref_e), dev)
+
+    # Phases 12-14: the self-join at ECG's length through the ban.
+    sj_paths, _ = phase_self_join(torch, np, ops, kpkg, h, ref_e,
+                                   int32_rate, dev)
+    path_by.update(sj_paths)
+    path_by.update(phase_self_join_long(torch, np, ops, h, ref_e[:100_000],
+                                        dev))
+    path_by["profile_pruned"] = phase_profile_pruned(torch, np, ops, kpkg,
+                                                     ls_ref, dev)
+    path_by["stream_profile"] = phase_stream_profile(torch, np, ops, kpkg,
+                                                     ref_e, dev)
     path_by = {"matsa_human": human_launches, "topk_fold_human":
                topk_launches, "sdtw_spans_ecg": ecg_launches,
                "long_queries": long_launches, **path_by}
 
-    def bound(b_, n_, m_, track, lastrow):
+    def bound(b_, n_, m_, track, lastrow, banned=0):
+        """Least time for the launch: ``banned`` columns (summed over the
+        queries) are masked, so their cells do no arithmetic."""
         acc = 4
         byts = (b_ * n_ * acc + m_ * acc + b_ * 4          # q, r, qlens
                 + 2 * (b_ * n_ * acc + b_ * 8)             # carry in + out
                 + (2 * (b_ * n_ * 4 + b_ * 4) if track else 0)
-                + (b_ * m_ * (acc + (4 if track else 0)) if lastrow else 0))
-        ops_ = b_ * n_ * m_ * OPS_PER_CELL["span" if track else "plain"]
+                + (b_ * m_ * (acc + (4 if track else 0)) if lastrow else 0)
+                + (b_ * 8 if banned else 0))               # the bans
+        ops_ = ((b_ * m_ - banned) * n_
+                * OPS_PER_CELL["span" if track else "plain"])
         t_bytes, t_ops = byts / HBM_BYTES_PER_S, ops_ / int32_rate
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes > t_ops else "operations")
@@ -955,27 +1423,43 @@ def main() -> int:
            "wavefront": "src/repro_torch/kernels/sdtw/csrc/sdtw.cu"}
     # Launches on the path that runs the kernel (phases 4-7); times at the
     # Table V shape of the path that runs the variant at full width.
+    # The ban variants: launches on the self-join paths (phase 12), times
+    # at ECG-cut with self-join zones (phase 8).
     path_launches = {"rows_plain": human_launches["rows_plain"],
                      "rows_span": ecg_launches["rows_span"],
                      "rows_lastrow": topk_launches["rows_lastrow"],
-                     **long_launches}
-    for kernel in ops.KERNELS:
-        for (var, track, lastrow), shape in zip(
-                variants, ("Human", "ECG-cut", "Human")):
-            key = f"{kernel}_{var}"
-            b_ms, b_by = bound(*dims[shape], track, lastrow)
-            rows.append({"name": key, "route": "cuda", "source": src[kernel],
-                         "replaces": "src/repro/kernels/sdtw/ops.py:140",
-                         "launches": path_launches[key],
-                         "launches_by_path": {
-                             path: c.get(key, 0)
-                             for path, c in path_by.items()},
-                         "max_abs_err": h.err[key],
-                         "ms": times[key, shape],
-                         "plain_ms": plain_times[var, shape],
-                         "plain_queries": shapes[shape][2],
-                         "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": None, "shape": shape})
+                     **long_launches,
+                     **{k: v for p_ in ("self_join_ecg",
+                                        "self_join_windows_ecg",
+                                        "self_join_long",
+                                        "self_join_long_windows")
+                        for k, v in path_by[p_].items()
+                        if k.endswith("_ban") and v}}
+    for (var, track, lastrow) in variants:
+        b_ms, b_by = bound(*dims["ECG-cut"], track, lastrow, banned_cols)
+        log(f"bound {var} with self-join bans at ECG-cut: {b_ms:.3f} ms "
+            f"({b_by}); rows {times[f'rows_{var}_ban', 'ECG-cut'] / b_ms:.2f}x"
+            f", wavefront "
+            f"{times[f'wavefront_{var}_ban', 'ECG-cut'] / b_ms:.2f}x it")
+    for ban in (False, True):
+        for kernel in ops.KERNELS:
+            for var, track, lastrow in variants:
+                shape = "ECG-cut" if ban or var == "span" else "Human"
+                suffix = "_ban" if ban else ""
+                key = f"{kernel}_{var}{suffix}"
+                b_ms, b_by = bound(*dims[shape], track, lastrow,
+                                   banned_cols if ban else 0)
+                rows.append({
+                    "name": key, "route": "cuda", "source": src[kernel],
+                    "replaces": "src/repro/kernels/sdtw/ops.py:140",
+                    "launches": path_launches[key],
+                    "launches_by_path": {path: c.get(key, 0)
+                                         for path, c in path_by.items()},
+                    "max_abs_err": h.err[key], "ms": times[key, shape],
+                    "plain_ms": plain_times[var + suffix, shape],
+                    "plain_queries": shapes[shape][2],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "shape": shape + (" with self-join bans" if ban else "")})
     log(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,9 +20,10 @@ with rule 3 read for the card:
 
   1. ``mesh`` given (or ``impl="sharded"``)        → sharded driver.
   2. ``top_k`` or ``chunk`` given                  → chunked streaming.
-  3. the tensors are on a CUDA device and there is
-     no exclusion zone                             → the sDTW kernel (it
-     loops over any M inside each block).
+  3. the tensors are on a CUDA device              → the sDTW kernel (it
+     loops over any M inside each block; exclusion zones become its
+     per-query column ban, where the reference's rule 3 sends them to
+     the row scan — the same answers).
   4. M ≥ ``CHUNK_THRESHOLD``                       → chunked streaming.
   5. M < 2·N                                       → wavefront.
   6. otherwise                                     → rowscan.
@@ -36,6 +37,9 @@ one-upload-per-slice loop for a reference held on the host.
 
 Ragged batches: a *list* of 1-D queries is bucketed by power-of-two
 padded length (at least ``MIN_BUCKET``) and each bucket runs as one call.
+
+An explicit ``impl='pallas'`` with exclusion ranges raises, as in the
+reference; only ``'auto'`` takes them to the kernel.
 """
 from __future__ import annotations
 
@@ -80,9 +84,10 @@ def choose_impl_explained(nq: int, n: int, m: int, *,
         return ("chunked", "structural", "explicit chunk forces streaming",
                 ())
     backend = "cuda" if backend is None else backend
-    if backend == "cuda" and not has_exclusion:
+    if backend == "cuda":
         return ("pallas", "structural",
-                "CUDA device (the sDTW kernel walks any M)", ())
+                "CUDA device (the sDTW kernel walks any M and bans "
+                "exclusion zones per query)", ())
     if m >= CHUNK_THRESHOLD:
         return ("chunked", "structural",
                 f"M >= CHUNK_THRESHOLD (1<<{CHUNK_THRESHOLD.bit_length() - 1})",
@@ -140,6 +145,10 @@ def sdtw(queries, reference, qlens=None, *, metric: str = "abs_diff",
     Returns (nq,) distances in the accumulator dtype — a 0-d tensor for a
     single 1-D query; a (dists, positions) pair or (dists, starts, ends)
     triple in the positions/spans modes; (nq, k) stacks with ``top_k``.
+    A query whose every column is banned by ``excl_lo``/``excl_hi`` gets
+    distance BIG on every route, but its end and start depend on the
+    route, as in the reference: -1 on the kernel (the card's route) and
+    the chunked and top-K routes, column 0 on the row scan (the CPU's).
     """
     return SdtwRequest(
         queries=queries, reference=reference, qlens=qlens, metric=metric,
@@ -169,13 +178,13 @@ def _execute_sdtw(req: SdtwRequest):
     qlens = None if req.qlens is None else as_tensor(req.qlens, dev,
                                                      torch.int32)
     has_excl = req.excl_lo is not None or req.excl_hi is not None
+    if req.impl == "pallas" and has_excl:
+        raise ValueError("the pallas kernel does not support exclusion "
+                         "zones; use impl='rowscan' or 'chunked'")
     impl = req.impl
     if impl == "auto":
         impl = choose_impl(nq, n, m, backend=dev.type, chunk=req.chunk,
                            has_exclusion=has_excl, top_k=req.top_k)
-    if impl == "pallas" and has_excl:
-        raise ValueError("the pallas kernel does not support exclusion "
-                         "zones; use impl='rowscan' or 'chunked'")
 
     if impl in ("rowscan", "wavefront"):
         lo = _normalize_excl(req.excl_lo, nq, dev) if has_excl else None
@@ -189,7 +198,8 @@ def _execute_sdtw(req: SdtwRequest):
             out = sdtw_cuda(queries, reference, qlens, req.metric,
                             block_q=req.block_q, block_m=req.block_m,
                             return_positions=req.return_positions,
-                            return_spans=req.return_spans, device=dev)
+                            return_spans=req.return_spans, device=dev,
+                            excl_lo=req.excl_lo, excl_hi=req.excl_hi)
         else:
             out = _pallas_streamed(queries, reference, qlens, req.metric,
                                    req.chunk, req.block_q, req.block_m,
@@ -229,9 +239,10 @@ def stream(queries, *, qlens=None, metric: str = "abs_diff",
     give fault-tolerant serving, in the reference's snapshot format.
     ``impl='pallas'`` streams fed tiles through the sDTW kernel's carry —
     top-K heaps, alerts and pruning scoring on its last-row capture;
-    ``'auto'`` picks it on a CUDA device (the row-scan tile loop only for
-    per-query exclusion ranges, which the kernel does not take) and the
-    row-scan loop elsewhere. ``device`` is where the session runs
+    ``'auto'`` picks it on a CUDA device (per-query exclusion ranges as
+    the kernel's column ban; an explicit ``'pallas'`` refuses them, as in
+    the reference) and the row-scan loop elsewhere. ``device`` is where
+    the session runs
     (``None``: the CUDA device). ``mesh``/``mesh_shape``/
     ``impl='sharded'`` are not ported yet (ROADMAP queue 1, item 12).
     """
@@ -406,7 +417,9 @@ def pad_ragged_bucket(qs, idxs, blen: int):
 def _sdtw_ragged(req: SdtwRequest, dev: torch.device):
     """Bucketed dispatch for mixed-length query sets. As in the reference,
     each bucket passes per-query exclusion arrays (``-1`` when none were
-    given), so ``impl='auto'`` never picks the kernel for a ragged list."""
+    given): the reference's ``impl='auto'`` then never picks its kernel,
+    where here the card takes the kernel, which launches without a ban
+    for ranges that are empty for every query."""
     qs = [q.cpu().numpy() if isinstance(q, torch.Tensor) else np.asarray(q)
           for q in req.queries]
     nq = len(qs)

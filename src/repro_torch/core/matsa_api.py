@@ -1,9 +1,9 @@
 """MATSA host interface (paper Listing 1) in PyTorch.
 
 Counterpart of ``repro.core.matsa_api``: arrays in,
-``MatsaResult(distances, anomalies)`` out, for the query-filtering mode
-(Algorithm 1). The self-join mode comes with the matrix-profile slice
-(ROADMAP.md queue 1, item 10).
+``MatsaResult(distances, anomalies)`` out, in both of the paper's modes:
+query filtering (Algorithm 1) and the self-join (every window of the
+reference against the reference, with its trivial-match zone banned).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.device import as_tensor, resolve_device
 from . import engine
-from .request import _not_ported
+from .sdtw import self_join_exclusion, self_join_windows
 
 MODES = ("query_filtering", "self_join")
 
@@ -36,37 +36,79 @@ def matsa(reference, queries=None, query_sizes=None, *,
     """Run TSA over a reference, per the paper's host API.
 
     query_filtering: ``queries`` (n_queries, max_len) padded array compared
-    against ``reference``; ``query_sizes`` gives true lengths. An
-    ``anomaly_threshold`` marks queries whose best-alignment distance
+    against ``reference``; ``query_sizes`` gives true lengths.
+    self_join: sliding windows of size ``window`` (stride ``stride``) of the
+    reference against the reference itself; ``exclusion`` bans the trivial
+    self-match zone (window ± window/2, in samples).
+
+    An ``anomaly_threshold`` marks queries whose best-alignment distance
     exceeds it (discords, §II-A). The distances come from
     ``repro_torch.core.engine.sdtw`` (``impl``, ``chunk`` and ``mesh``
     pass straight through); on the card that is the hand-written sDTW
-    kernel. ``device`` is where it runs (``None``: the CUDA device).
+    kernel, with the exclusion zones as its per-query column ban.
+    ``device`` is where it runs (``None``: the CUDA device).
+
+    Self-join with ``exclusion=True``, ``impl='auto'`` and no ``mesh``
+    routes through ``repro_torch.search.profile.matrix_profile`` (exact,
+    ``prune=False``, windows in bounded batches); the distances are the
+    direct route's bitwise, and ``MatsaResult.profile`` carries the whole
+    matrix profile (spans, motif pairs, discords).
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    window_starts = None
     if mode == "self_join":
         if window is None:
             raise ValueError("self_join mode requires window=")
-        raise _not_ported("matsa(mode='self_join')", 10)
-    if queries is None:
-        raise ValueError("query_filtering mode requires queries=")
-    dev = resolve_device(device)
-    queries = as_tensor(queries, dev)
-    if queries.ndim == 1:
-        queries = queries[None, :]
-    nq = queries.shape[0]
-    qlens = (torch.full((nq,), queries.shape[1], dtype=torch.int32,
-                        device=dev)
-             if query_sizes is None else as_tensor(query_sizes, dev,
-                                                   torch.int32))
+        dev = resolve_device(device)
+        if exclusion and impl == "auto" and mesh is None:
+            from repro_torch.search.profile import matrix_profile
+            prof = matrix_profile(reference, window, stride=stride,
+                                  metric=dist_metric, chunk=chunk,
+                                  prune=False, device=dev)
+            distances = torch.from_numpy(prof.nn_dist).to(dev)
+            return MatsaResult(
+                distances=distances,
+                anomalies=_anomalies(distances, anomaly_threshold),
+                window_starts=torch.from_numpy(prof.starts).to(
+                    dev, torch.int32),
+                profile=prof)
+        reference = as_tensor(reference, dev)
+        queries, window_starts = self_join_windows(reference, window, stride)
+        nq = queries.shape[0]
+        qlens = torch.full((nq,), window, dtype=torch.int32, device=dev)
+        if exclusion:
+            excl_lo, excl_hi = self_join_exclusion(window_starts.cpu(),
+                                                   window)
+        else:
+            excl_lo = excl_hi = torch.full((nq,), -1, dtype=torch.int32)
+    else:
+        if queries is None:
+            raise ValueError("query_filtering mode requires queries=")
+        dev = resolve_device(device)
+        queries = as_tensor(queries, dev)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        nq = queries.shape[0]
+        qlens = (torch.full((nq,), queries.shape[1], dtype=torch.int32,
+                            device=dev)
+                 if query_sizes is None else as_tensor(query_sizes, dev,
+                                                       torch.int32))
+        excl_lo = excl_hi = None
     distances = engine.sdtw(queries, reference, qlens, metric=dist_metric,
-                            impl=impl, chunk=chunk, mesh=mesh, device=dev)
-    anomalies = None
-    if anomaly_threshold is not None:
-        anomalies = distances > torch.as_tensor(
-            anomaly_threshold, device=dev).to(distances.dtype)
-    return MatsaResult(distances=distances, anomalies=anomalies)
+                            impl=impl, chunk=chunk, mesh=mesh,
+                            excl_lo=excl_lo, excl_hi=excl_hi, device=dev)
+    return MatsaResult(distances=distances,
+                       anomalies=_anomalies(distances, anomaly_threshold),
+                       window_starts=window_starts)
+
+
+def _anomalies(distances, threshold):
+    """Distances above ``threshold`` (discords), or None without one."""
+    if threshold is None:
+        return None
+    return distances > torch.as_tensor(
+        threshold, device=distances.device).to(distances.dtype)
 
 
 def load_real_workload_shapes():

@@ -308,24 +308,20 @@ class StreamRequest:
     def open(self):
         """Validate and open the session — identical to
         ``engine.stream(**kwargs)``. ``impl='auto'`` takes the kernel on a
-        CUDA device unless a per-query exclusion range is set (top-K
-        heaps, alerts and pruning all score on its last-row capture), and
-        the rowscan tile loop elsewhere."""
+        CUDA device (top-K heaps, alerts and pruning all score on its
+        last-row capture; per-query exclusion ranges are its column ban),
+        and the rowscan tile loop elsewhere."""
         from repro_torch.device import resolve_device
         from repro_torch.stream import StreamSession
         self.validate()
-        dev = resolve_device(self.device)
-        impl = self.impl
-        if impl == "auto":
-            impl = ("pallas" if dev.type == "cuda" and self.excl_lo is None
-                    else "rowscan")
         return StreamSession(
             self.queries, qlens=self.qlens, metric=self.metric,
-            chunk=self.chunk, impl=impl, top_k=self.top_k,
+            chunk=self.chunk, impl=self.impl, top_k=self.top_k,
             excl_zone=self.excl_zone, excl_mode=self.excl_mode,
             return_spans=self.return_spans,
             return_positions=self.return_positions,
             excl_lo=self.excl_lo, excl_hi=self.excl_hi, prune=self.prune,
             span_cap=self.span_cap, alert_threshold=self.alert_threshold,
             on_alert=self.on_alert, cache=self.cache, ref_key=self.ref_key,
-            block_q=self.block_q, block_m=self.block_m, device=dev)
+            block_q=self.block_q, block_m=self.block_m,
+            device=resolve_device(self.device))

@@ -16,7 +16,10 @@
 // end / start of row qlen-1 harvested with a strict improvement test, so
 // an earlier slice or column wins a tie. In span mode every cell carries
 // its start lane as a lexicographic (value, start) pair, ties to the
-// smaller start.
+// smaller start. With the ban (the BAN instantiations; the TPU kernel has
+// none), query b's global columns [excl_lo[b], excl_hi[b]) are masked like
+// the slice's masked columns: the self-join's trivial-match zone, where
+// the reference sets the distance to BIG (sat_add(BIG, x) = BIG).
 //
 // What differs from the TPU. The TPU kernel walks a sequential grid axis
 // over reference tiles and carries the boundary column in VMEM scratch
@@ -124,6 +127,8 @@ struct Args {
   int* bstart_out;        // (B, N)  span mode
   void* lastrow;          // (B, M) acc   last-row capture
   int* lastrow_start;     // (B, M)       last-row capture, span mode
+  const int* excl_lo;     // (B,)   BAN: banned global columns [lo, hi)
+  const int* excl_hi;     // (B,)
   int B, N, M;
   int ref_offset, ref_len, ref_lead;
   int block_q, tpq, tile, ring;   // ring == 0: no staging (global scratch)
@@ -132,8 +137,10 @@ struct Args {
 };
 
 // SCRATCH: the block's layout lives in the global scratch (a separate
-// instantiation, so the shared-memory one keeps its shared loads).
-template <typename T, bool TRACK, bool LASTROW, bool SQUARE, bool SCRATCH>
+// instantiation, so the shared-memory one keeps its shared loads). BAN:
+// each query masks its banned columns.
+template <typename T, bool TRACK, bool LASTROW, bool SQUARE, bool SCRATCH,
+          bool BAN>
 __global__ void sdtw_wavefront_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int N = a.N, M = a.M;
@@ -170,7 +177,19 @@ __global__ void sdtw_wavefront_kernel(Args a) {
   int hrow = -1;
   T best = BIG;
   int pos = -1, start = -1;
+  // The ban in slice columns [ban_lo, ban_lo + ban_w), clipped to [0, M]
+  // (64-bit: the global range may reach INT_FAR, the slice start below 0).
+  int ban_lo = 0;
+  unsigned ban_w = 0;
   if (active) {
+    if (BAN) {
+      long long lo = static_cast<long long>(a.excl_lo[b]) - a.ref_offset;
+      long long hi = static_cast<long long>(a.excl_hi[b]) - a.ref_offset;
+      lo = lo < 0 ? 0 : (lo > M ? M : lo);
+      hi = hi < lo ? lo : (hi > M ? M : hi);
+      ban_lo = static_cast<int>(lo);
+      ban_w = static_cast<unsigned>(hi - lo);
+    }
     hrow = a.qlens[b] - 1;
     if (hrow >= N) hrow = -1;
     best = static_cast<const T*>(a.best_in)[b];
@@ -214,7 +233,8 @@ __global__ void sdtw_wavefront_kernel(Args a) {
         const int j = k - i;
         T val;
         int st = kIntFar;
-        if (j < a.ref_lead || j >= a.ref_len) {
+        if (j < a.ref_lead || j >= a.ref_len ||
+            (BAN && static_cast<unsigned>(j - ban_lo) < ban_w)) {
           val = BIG;
         } else {
           const T d = Acc<T>::dist(qs[i], rs[j & mask], SQUARE);
@@ -283,11 +303,11 @@ __global__ void sdtw_wavefront_kernel(Args a) {
   }
 }
 
-template <typename T, bool TRACK, bool LASTROW, bool SQUARE>
+template <typename T, bool TRACK, bool LASTROW, bool SQUARE, bool BAN>
 int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  auto kernel = sdtw_wavefront_kernel<T, TRACK, LASTROW, SQUARE, false>;
+  auto kernel = sdtw_wavefront_kernel<T, TRACK, LASTROW, SQUARE, false, BAN>;
   if (a.scratch != nullptr) {
-    kernel = sdtw_wavefront_kernel<T, TRACK, LASTROW, SQUARE, true>;
+    kernel = sdtw_wavefront_kernel<T, TRACK, LASTROW, SQUARE, true, BAN>;
     smem = 0;
   }
   if (smem > 48 * 1024) {
@@ -301,10 +321,17 @@ int launch(const Args& a, size_t smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool TRACK, bool LASTROW, bool SQUARE>
+int pick_ban(const Args& a, size_t smem, cudaStream_t s) {
+  return a.excl_lo != nullptr
+             ? launch<T, TRACK, LASTROW, SQUARE, true>(a, smem, s)
+             : launch<T, TRACK, LASTROW, SQUARE, false>(a, smem, s);
+}
+
 template <typename T, bool TRACK, bool LASTROW>
 int pick_metric(int square, const Args& a, size_t smem, cudaStream_t s) {
-  return square ? launch<T, TRACK, LASTROW, true>(a, smem, s)
-                : launch<T, TRACK, LASTROW, false>(a, smem, s);
+  return square ? pick_ban<T, TRACK, LASTROW, true>(a, smem, s)
+                : pick_ban<T, TRACK, LASTROW, false>(a, smem, s);
 }
 
 template <typename T>
@@ -332,20 +359,24 @@ extern "C" {
 
 // Launches the wavefront kernel. is_float selects float32 (else int32)
 // accumulation, square the square_diff metric (else abs_diff), track the
-// start lane, lastrow the last-row capture. scratch, when not null, holds
-// smem_bytes(N, block_q, 0, track) bytes for each block of the grid, and
-// ring is then ignored. Pointers of disabled outputs may be null. Returns
-// the launch's cudaError_t (0 on success).
+// start lane, lastrow the last-row capture; non-null excl_lo / excl_hi
+// ((B,) int32, global columns) select the instantiation with the ban.
+// scratch, when not null, holds smem_bytes(N, block_q, 0, track) bytes for
+// each block of the grid, and ring is then ignored. Pointers of disabled
+// outputs may be null. Returns the launch's cudaError_t (0 on success).
 int sdtw_launch(int is_float, int square, int track, int lastrow,
                 const void* q, const void* r, const void* qlens,
                 const void* bcol_in, const void* bstart_in,
                 const void* best_in, const void* pos_in,
                 const void* start_in, void* best_out, void* pos_out,
                 void* start_out, void* bcol_out, void* bstart_out,
-                void* lastrow_out, void* lastrow_start, int B, int N, int M,
-                int ref_offset, int ref_len, int ref_lead, int block_q,
-                int tpq, int tile, int ring, void* scratch, void* stream) {
+                void* lastrow_out, void* lastrow_start, const void* excl_lo,
+                const void* excl_hi, int B, int N, int M, int ref_offset,
+                int ref_len, int ref_lead, int block_q, int tpq, int tile,
+                int ring, void* scratch, void* stream) {
   if (B == 0) return 0;
+  if ((excl_lo == nullptr) != (excl_hi == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
   a.r = r;
@@ -362,6 +393,8 @@ int sdtw_launch(int is_float, int square, int track, int lastrow,
   a.bstart_out = static_cast<int*>(bstart_out);
   a.lastrow = lastrow_out;
   a.lastrow_start = static_cast<int*>(lastrow_start);
+  a.excl_lo = static_cast<const int*>(excl_lo);
+  a.excl_hi = static_cast<const int*>(excl_hi);
   a.B = B;
   a.N = N;
   a.M = M;

@@ -18,7 +18,11 @@
 // >= ref_len masked to BIG, all N rows computed, the carry exiting at
 // column ref_len - 1, the strict-improvement harvest of row qlen - 1 (the
 // earliest column wins), and in span mode a (value, start) pair per cell,
-// ties to the smaller start.
+// ties to the smaller start. With the ban (the BAN instantiations, which
+// the TPU kernel has no counterpart of), query b's global columns
+// [excl_lo[b], excl_hi[b]) are masked like the slice's own masked columns:
+// the self-join's trivial-match zone, which the reference computes by
+// setting the banned distances to BIG (sat_add(BIG, x) = BIG).
 //
 // What bounds it on this card: int32 operations. nvcc emits a cell as 4
 // instructions (a subtract, IABS or a multiply, VIMNMX3 for the three-way
@@ -46,8 +50,10 @@
 // are tested once per step on j, and row 0 (lane 0's slot 0) is a select
 // on a loop-invariant predicate. (A select per cell for the mask instead
 // of the branch keeps nvcc from fusing the saturating min into the add:
-// three instructions a cell where VIADDMNMX is one.) The harvest
-// reads a compile-time slot (R - 1) when row qlen - 1 is a lane's
+// three instructions a cell where VIADDMNMX is one.) The ban is one more
+// test per step, shared by the lane's R rows: it depends on the column
+// and the query only, and is moved into slice columns once per warp. The
+// harvest reads a compile-time slot (R - 1) when row qlen - 1 is a lane's
 // last row, the case of every fixed-length batch with R | N; other
 // queries (ragged qlens, R not dividing N) take a second copy of the
 // sweep that selects the slot with an unrolled select. Each warp picks
@@ -130,6 +136,8 @@ struct Args {
   int* bstart_out;        // (B, N)  span mode
   void* lastrow;          // (B, M) acc, or null: no last-row capture
   int* lastrow_start;     // (B, M)  last-row capture, span mode
+  const int* excl_lo;     // (B,)    BAN: banned global columns [lo, hi)
+  const int* excl_hi;     // (B,)
   int B, N, M;
   int ref_offset, ref_len, ref_lead;
 };
@@ -145,11 +153,13 @@ struct Harvest {
 };
 
 // The sweep over all M columns. FIXED: the harvest row is slot R - 1.
-template <typename T, bool TRACK, bool SQUARE, int R, bool FIXED>
+// BAN: slice columns [ban_lo, ban_lo + ban_w) are masked.
+template <typename T, bool TRACK, bool SQUARE, int R, bool FIXED, bool BAN>
 __device__ __forceinline__ void sweep(const Args& a, int b, int lane,
                                       int lanes, const T (&qv)[R],
                                       T (&v)[R], int (&st)[R],
-                                      Harvest<T>& h) {
+                                      Harvest<T>& h, int ban_lo,
+                                      unsigned ban_w) {
   const int N = a.N, M = a.M;
   const T BIG = Acc<T>::big();
   const T* r = static_cast<const T*>(a.r);
@@ -186,7 +196,8 @@ __device__ __forceinline__ void sweep(const Args& a, int b, int lane,
     const int j = s - lane;
     if (static_cast<unsigned>(j) >= static_cast<unsigned>(M)) continue;
 
-    if (j >= a.ref_lead && j < a.ref_len) {
+    if (j >= a.ref_lead && j < a.ref_len &&
+        !(BAN && static_cast<unsigned>(j - ban_lo) < ban_w)) {
 #pragma unroll
       for (int k = 0; k < R; ++k) {
         const T d = Acc<T>::dist(qv[k], rcur, SQUARE);
@@ -215,7 +226,7 @@ __device__ __forceinline__ void sweep(const Args& a, int b, int lane,
           sup = ns;
         }
       }
-    } else {                                     // masked column
+    } else {                                     // masked or banned
 #pragma unroll
       for (int k = 0; k < R; ++k) {
         v[k] = BIG;
@@ -261,7 +272,7 @@ __device__ __forceinline__ void sweep(const Args& a, int b, int lane,
   }
 }
 
-template <typename T, bool TRACK, bool SQUARE, int R>
+template <typename T, bool TRACK, bool SQUARE, int R, bool BAN>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 sdtw_rows_kernel(Args a) {
   const int lane = threadIdx.x & 31;
@@ -300,10 +311,25 @@ sdtw_rows_kernel(Args a) {
   h.pos = a.pos_in[b];
   h.start = TRACK ? a.start_in[b] : -1;
 
+  // The ban in slice columns, clipped to [0, M] (64-bit: the global range
+  // may reach INT_FAR and the slice may start at a negative offset).
+  int ban_lo = 0;
+  unsigned ban_w = 0;
+  if (BAN) {
+    long long lo = static_cast<long long>(a.excl_lo[b]) - a.ref_offset;
+    long long hi = static_cast<long long>(a.excl_hi[b]) - a.ref_offset;
+    lo = lo < 0 ? 0 : (lo > a.M ? a.M : lo);
+    hi = hi < lo ? lo : (hi > a.M ? a.M : hi);
+    ban_lo = static_cast<int>(lo);
+    ban_w = static_cast<unsigned>(hi - lo);
+  }
+
   if (!h.blank && h.slot == R - 1)
-    sweep<T, TRACK, SQUARE, R, true>(a, b, lane, lanes, qv, v, st, h);
+    sweep<T, TRACK, SQUARE, R, true, BAN>(a, b, lane, lanes, qv, v, st, h,
+                                          ban_lo, ban_w);
   else
-    sweep<T, TRACK, SQUARE, R, false>(a, b, lane, lanes, qv, v, st, h);
+    sweep<T, TRACK, SQUARE, R, false, BAN>(a, b, lane, lanes, qv, v, st, h,
+                                           ban_lo, ban_w);
 
   // The lane owning the last row writes the harvest; with no last row,
   // lane 0 passes the carry's harvest through.
@@ -314,38 +340,47 @@ sdtw_rows_kernel(Args a) {
   }
 }
 
-template <typename T, bool TRACK, bool SQUARE, int R>
+template <typename T, bool TRACK, bool SQUARE, bool BAN, int R>
 int launch(const Args& a, int warps, cudaStream_t stream) {
   const int grid = (a.B + warps - 1) / warps;
-  sdtw_rows_kernel<T, TRACK, SQUARE, R><<<grid, warps * 32, 0, stream>>>(a);
+  sdtw_rows_kernel<T, TRACK, SQUARE, R, BAN>
+      <<<grid, warps * 32, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Rows per lane the library is built for: ops.py ROWS_PER_LANE.
-template <typename T, bool TRACK, bool SQUARE>
+template <typename T, bool TRACK, bool SQUARE, bool BAN>
 int pick_rows(int rows, const Args& a, int warps, cudaStream_t s) {
   switch (rows) {
-    case 1: return launch<T, TRACK, SQUARE, 1>(a, warps, s);
-    case 2: return launch<T, TRACK, SQUARE, 2>(a, warps, s);
-    case 4: return launch<T, TRACK, SQUARE, 4>(a, warps, s);
-    case 7: return launch<T, TRACK, SQUARE, 7>(a, warps, s);
-    case 8: return launch<T, TRACK, SQUARE, 8>(a, warps, s);
-    case 16: return launch<T, TRACK, SQUARE, 16>(a, warps, s);
-    case 25: return launch<T, TRACK, SQUARE, 25>(a, warps, s);
-    case 32: return launch<T, TRACK, SQUARE, 32>(a, warps, s);
-    case 48: return launch<T, TRACK, SQUARE, 48>(a, warps, s);
+    case 1: return launch<T, TRACK, SQUARE, BAN, 1>(a, warps, s);
+    case 2: return launch<T, TRACK, SQUARE, BAN, 2>(a, warps, s);
+    case 4: return launch<T, TRACK, SQUARE, BAN, 4>(a, warps, s);
+    case 7: return launch<T, TRACK, SQUARE, BAN, 7>(a, warps, s);
+    case 8: return launch<T, TRACK, SQUARE, BAN, 8>(a, warps, s);
+    case 16: return launch<T, TRACK, SQUARE, BAN, 16>(a, warps, s);
+    case 25: return launch<T, TRACK, SQUARE, BAN, 25>(a, warps, s);
+    case 32: return launch<T, TRACK, SQUARE, BAN, 32>(a, warps, s);
+    case 48: return launch<T, TRACK, SQUARE, BAN, 48>(a, warps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
+template <typename T, bool BAN>
 int pick_mode(int track, int square, int rows, const Args& a, int warps,
               cudaStream_t s) {
   if (track)
-    return square ? pick_rows<T, true, true>(rows, a, warps, s)
-                  : pick_rows<T, true, false>(rows, a, warps, s);
-  return square ? pick_rows<T, false, true>(rows, a, warps, s)
-                : pick_rows<T, false, false>(rows, a, warps, s);
+    return square ? pick_rows<T, true, true, BAN>(rows, a, warps, s)
+                  : pick_rows<T, true, false, BAN>(rows, a, warps, s);
+  return square ? pick_rows<T, false, true, BAN>(rows, a, warps, s)
+                : pick_rows<T, false, false, BAN>(rows, a, warps, s);
+}
+
+template <typename T>
+int pick_ban(int track, int square, int rows, const Args& a, int warps,
+             cudaStream_t s) {
+  return a.excl_lo != nullptr
+             ? pick_mode<T, true>(track, square, rows, a, warps, s)
+             : pick_mode<T, false>(track, square, rows, a, warps, s);
 }
 
 }  // namespace
@@ -354,21 +389,25 @@ extern "C" {
 
 // Launches the rows kernel. is_float selects float32 (else int32)
 // accumulation, square the square_diff metric (else abs_diff), track the
-// start lane; a null lastrow_out disables the last-row capture. rows is R
-// (rows per lane, one of ops.py ROWS_PER_LANE, with 32 * rows >= N), warps
-// the queries per block (1..8). Pointers of disabled outputs may be null.
-// Returns the launch's cudaError_t (0 on success).
+// start lane; a null lastrow_out disables the last-row capture; non-null
+// excl_lo / excl_hi ((B,) int32, global columns) select the instantiation
+// with the ban. rows is R (rows per lane, one of ops.py ROWS_PER_LANE, with
+// 32 * rows >= N), warps the queries per block (1..8). Pointers of
+// disabled outputs may be null. Returns the launch's cudaError_t (0 on
+// success).
 int sdtw_rows_launch(int is_float, int square, int track, const void* q,
                      const void* r, const void* qlens, const void* bcol_in,
                      const void* bstart_in, const void* best_in,
                      const void* pos_in, const void* start_in,
                      void* best_out, void* pos_out, void* start_out,
                      void* bcol_out, void* bstart_out, void* lastrow_out,
-                     void* lastrow_start, int B, int N, int M,
+                     void* lastrow_start, const void* excl_lo,
+                     const void* excl_hi, int B, int N, int M,
                      int ref_offset, int ref_len, int ref_lead, int rows,
                      int warps, void* stream) {
   if (B == 0) return 0;
-  if (warps < 1 || warps > kMaxWarps || rows < 1 || 32 * rows < N)
+  if (warps < 1 || warps > kMaxWarps || rows < 1 || 32 * rows < N ||
+      (excl_lo == nullptr) != (excl_hi == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
@@ -386,6 +425,8 @@ int sdtw_rows_launch(int is_float, int square, int track, const void* q,
   a.bstart_out = static_cast<int*>(bstart_out);
   a.lastrow = lastrow_out;
   a.lastrow_start = static_cast<int*>(lastrow_start);
+  a.excl_lo = static_cast<const int*>(excl_lo);
+  a.excl_hi = static_cast<const int*>(excl_hi);
   a.B = B;
   a.N = N;
   a.M = M;
@@ -393,8 +434,8 @@ int sdtw_rows_launch(int is_float, int square, int track, const void* q,
   a.ref_len = ref_len;
   a.ref_lead = ref_lead;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_float ? pick_mode<float>(track, square, rows, a, warps, s)
-                  : pick_mode<int>(track, square, rows, a, warps, s);
+  return is_float ? pick_ban<float>(track, square, rows, a, warps, s)
+                  : pick_ban<int>(track, square, rows, a, warps, s);
 }
 
 }  // extern "C"

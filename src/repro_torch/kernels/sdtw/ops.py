@@ -6,7 +6,10 @@
 carry — ``(bcol (B, N), best (B,), pos (B,))``, or in span mode the
 5-tuple ``(bcol, bstart, best, pos, start)`` — that streams a reference
 of any length through fixed launches, and the ``ref_offset`` /
-``ref_len`` / ``ref_lead`` slice masks.
+``ref_len`` / ``ref_lead`` slice masks. One thing the TPU kernel lacks:
+a banned column range per query, ``[excl_lo[b], excl_hi[b])`` in global
+columns (the self-join's trivial-match zone, which the reference's row
+scan applies as BIG distances), so that exclusion zones run on the card.
 
 Two kernels compute the same function (``kernel=``):
 
@@ -26,7 +29,8 @@ cannot launch raises.
 
 Each launch adds one to ``LAUNCHES["<kernel>_<variant>"]``, where the
 variant is ``plain`` (K1), ``span`` (K2, start lane) or ``lastrow`` (K3,
-last-row capture, with or without the start lane).
+last-row capture, with or without the start lane), with ``_ban`` appended
+for the instantiations with the ban.
 """
 from __future__ import annotations
 
@@ -64,8 +68,8 @@ SMEM_LIMIT = 232_448
 #: launch in slices.
 SCRATCH_LIMIT = 1 << 30
 
-LAUNCHES = {f"{k}_{v}": 0 for k in KERNELS
-            for v in ("plain", "span", "lastrow")}
+LAUNCHES = {f"{k}_{v}{b}": 0 for k in KERNELS
+            for v in ("plain", "span", "lastrow") for b in ("", "_ban")}
 
 
 def reset_launches():
@@ -74,11 +78,35 @@ def reset_launches():
         LAUNCHES[key] = 0
 
 
-def variant(track: bool, lastrow: bool, kernel: str) -> str:
+def variant(track: bool, lastrow: bool, kernel: str,
+            ban: bool = False) -> str:
     """The ``LAUNCHES`` key of a launch of ``kernel`` in this mode."""
-    if lastrow:
-        return f"{kernel}_lastrow"
-    return f"{kernel}_span" if track else f"{kernel}_plain"
+    var = "lastrow" if lastrow else "span" if track else "plain"
+    return f"{kernel}_{var}{'_ban' if ban else ''}"
+
+
+def kernel_bans(excl_lo, excl_hi, b: int, device, test_device=False):
+    """Per-query banned column ranges as a pair of contiguous (b,) int32
+    tensors on ``device`` — or ``None`` when none is given or every range
+    is empty, so that a launch runs the instantiation without a ban.
+    Scalars apply to every query. Ranges that come from the host are
+    tested for free; ranges already on a CUDA device are tested only with
+    ``test_device`` (one synchronisation, which a loop over slices pays
+    once, before it, and not at every launch)."""
+    if excl_lo is None and excl_hi is None:
+        return None
+    if excl_lo is None or excl_hi is None:
+        raise ValueError("excl_lo and excl_hi must be given together")
+    lo, hi = (torch.as_tensor(x, dtype=torch.int32) for x in (excl_lo,
+                                                              excl_hi))
+    lo, hi = (x.expand(b) if x.ndim == 0 else x for x in (lo, hi))
+    if lo.shape != (b,) or hi.shape != (b,):
+        raise ValueError(f"excl_lo and excl_hi must be scalars or ({b},), "
+                         f"got {tuple(lo.shape)} and {tuple(hi.shape)}")
+    if ((lo.device.type == "cpu" or test_device)
+            and not bool((hi > lo).any())):
+        return None
+    return lo.to(device).contiguous(), hi.to(device).contiguous()
 
 
 def choose_kernel(n: int, kernel: str = "auto") -> str:
@@ -224,10 +252,10 @@ def _lib(name: str):
     if not getattr(lib, "_repro_bound", False):
         i, p = ctypes.c_int, ctypes.c_void_p
         if name == "sdtw":
-            lib.sdtw_launch.argtypes = [i] * 4 + [p] * 15 + [i] * 10 + [p] * 2
+            lib.sdtw_launch.argtypes = [i] * 4 + [p] * 17 + [i] * 10 + [p] * 2
             lib.sdtw_launch.restype = i
         else:
-            lib.sdtw_rows_launch.argtypes = [i] * 3 + [p] * 15 + [i] * 8 + [p]
+            lib.sdtw_rows_launch.argtypes = [i] * 3 + [p] * 17 + [i] * 8 + [p]
             lib.sdtw_rows_launch.restype = i
         lib._repro_bound = True
     return lib
@@ -235,10 +263,11 @@ def _lib(name: str):
 
 def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
                  ref_offset, rlen, ref_lead, want_lastrow, block_q, block_m,
-                 kernel):
+                 kernel, bans=None):
     """Allocate the outputs and launch ``kernel`` (``"rows"`` or
-    ``"wavefront"``) on the current stream; the wavefront kernel in batch
-    slices when its global scratch would exceed ``SCRATCH_LIMIT``."""
+    ``"wavefront"``) on the current stream — its instantiation with the
+    ban when ``bans`` (``kernel_bans``) is given; the wavefront kernel in
+    batch slices when its global scratch would exceed ``SCRATCH_LIMIT``."""
     track = bstart is not None
     b, n = q.shape
     m = r.shape[0]
@@ -262,7 +291,8 @@ def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
             empty((b, m), torch.int32, want_lastrow and track))
     if b == 0:
         return outs
-    batched = (q, qlens, bcol, bstart, best, pos, start) + outs
+    batched = ((q, qlens, bcol, bstart, best, pos, start) + outs
+               + (bans if bans is not None else (None, None)))
     flags = (int(acc.is_floating_point), int(metric == "square_diff"),
              int(track))
     scalars = (m, int(ref_offset), int(rlen), int(ref_lead))
@@ -295,7 +325,8 @@ def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
             if err != 0:
                 raise RuntimeError(f"sdtw {kernel} CUDA kernel launch failed "
                                    f"with CUDA error {err}")
-            LAUNCHES[variant(track, want_lastrow, kernel)] += 1
+            LAUNCHES[variant(track, want_lastrow, kernel,
+                             bans is not None)] += 1
     return outs
 
 
@@ -305,7 +336,7 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
               return_positions: bool = False, return_spans: bool = False,
               track_start: bool = False, ref_len=None, ref_lead=0,
               return_lastrow: bool = False, device=None,
-              kernel: str = "auto"):
+              kernel: str = "auto", excl_lo=None, excl_hi=None):
     """Batched sDTW through the hand-written kernels: queries (B, N),
     reference (M,) → (B,) distances.
 
@@ -322,7 +353,11 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
     positions are global; only the first ``ref_len`` columns are real (the
     carry exits at ``ref_len - 1``; ``ref_len <= 0`` passes the carry
     through); the first ``ref_lead`` columns are masked (a fresh carry is
-    assumed).
+    assumed). ``excl_lo``/``excl_hi`` ((B,) or scalars, global columns)
+    mask query b's columns ``[excl_lo[b], excl_hi[b])`` as well; ranges
+    from the host that are empty for every query launch the instantiation
+    without a ban (``kernel_bans``, which a slice loop calls once for
+    ranges on the card).
 
     Returns the distances, ``(dists, ends)`` with ``return_positions``, or
     ``(dists, starts, ends)`` with ``return_spans``; then the new carry
@@ -385,15 +420,17 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
     bcol, best = prep(bcol, acc), prep(best, acc)
     pos, bstart, start = (prep(pos, torch.int32), prep(bstart, torch.int32),
                           prep(start, torch.int32))
+    bans = kernel_bans(excl_lo, excl_hi, b, dev)
 
     if dev.type == "cuda":
         outs = _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart,
                             start, ref_offset, rlen, ref_lead,
-                            return_lastrow, block_q, block_m, kernel)
+                            return_lastrow, block_q, block_m, kernel, bans)
     else:
+        lo, hi = bans if bans is not None else (None, None)
         outs = sdtw_kernel_plain(q, r, qlens, metric, bcol, best, pos,
                                  bstart, start, int(ref_offset), rlen,
-                                 int(ref_lead), return_lastrow)
+                                 int(ref_lead), return_lastrow, lo, hi)
     dist, end_pos, start_out, bcol_out, bstart_out, lastrow, lstart = outs
 
     if return_spans:

@@ -17,7 +17,9 @@ start])`` and scalars ``ref_offset``, ``ref_len``, ``ref_lead``:
   * all N rows are computed, padded rows (``i >= qlen``) included, since
     the returned boundary column covers every row;
   * columns ``< ref_lead`` or ``>= ref_len`` are masked to BIG (start
-    lane INT_FAR);
+    lane INT_FAR), and so is query b's banned range of global columns
+    ``[excl_lo[b], excl_hi[b])`` when one is given (the reference's row
+    scan sets banned distances to BIG, so its values there are BIG too);
   * row 0 is a free start (``S[0, j] = d``, start = global column
     ``ref_offset + j``) and ignores the carry; row i ≥ 1 enters column 0
     from ``bcol[i]`` (left) and ``bcol[i - 1]`` (diagonal);
@@ -51,7 +53,8 @@ def _distance(q, r, metric):
 
 def sdtw_kernel_plain(q, r, qlens, metric, bcol, best, pos, bstart=None,
                       start=None, ref_offset: int = 0, ref_len: int = None,
-                      ref_lead: int = 0, want_lastrow: bool = False):
+                      ref_lead: int = 0, want_lastrow: bool = False,
+                      excl_lo=None, excl_hi=None):
     """The kernel's raw contract on tensors in the accumulator dtype.
 
     Args:
@@ -64,6 +67,8 @@ def sdtw_kernel_plain(q, r, qlens, metric, bcol, best, pos, bstart=None,
       ref_offset, ref_len, ref_lead: the slice's global column offset,
                        its true length and its masked lead (Python ints).
       want_lastrow:    also return row ``qlen - 1``.
+      excl_lo, excl_hi: (B,) int32 banned global column range per query,
+                       or ``None``.
 
     Returns ``(best, pos, start, bcol_out, bstart_out, lastrow,
     lastrow_start)``; the span-mode and last-row entries are ``None`` when
@@ -79,6 +84,9 @@ def sdtw_kernel_plain(q, r, qlens, metric, bcol, best, pos, bstart=None,
     j = torch.arange(m, device=dev)[None, :]
     col_ok = (j >= int(ref_lead)) & (j < rlen)
     gcol = (int(ref_offset) + j).to(torch.int32)
+    if excl_lo is not None:
+        col_ok = col_ok & ~((gcol >= excl_lo.reshape(b, 1))
+                            & (gcol < excl_hi.reshape(b, 1)))
     hrow = qlens.to(torch.int32).reshape(b, 1) - 1
     exit_col = min(max(rlen - 1, 0), m - 1)
 

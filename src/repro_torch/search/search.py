@@ -17,9 +17,13 @@ Step 5 runs on one of two DP backends (``engine_impl``): ``'pallas'``,
 the repo's hand-written sDTW kernel (the CUDA kernel on the card, its
 plain version on the CPU), scores a whole halo group in one launch and
 folds the kernel's last-row capture into the heap; ``'rowscan'`` runs the
-chunked row-scan tile loop, which also honours ``excl_lo``/``excl_hi``.
-int32 heaps are bitwise equal between the two. ``'auto'`` takes the
-kernel for tensors on a CUDA device when no exclusion range is set.
+chunked row-scan tile loop. Both honour ``excl_lo``/``excl_hi`` (the
+kernel as its per-query column ban), and int32 heaps are bitwise equal
+between the two. ``'auto'`` takes the kernel for tensors on a CUDA
+device, exclusion ranges or not (the reference sends those to the row
+scan); on the CPU it is the reference's rule. An explicit
+``engine_impl='pallas'`` with exclusion ranges raises, as in the
+reference.
 
 Pruning semantics — two deviations from the exact streamed path, as in
 the reference:
@@ -101,6 +105,12 @@ def default_chunk(m: int, n: int) -> int:
                    _pow2_at_least(max(n, m // 8))))
 
 
+def _auto_engine(dev: torch.device) -> str:
+    """``engine_impl='auto'``: the kernel on a CUDA device (exclusion
+    ranges as its ban), the row scan elsewhere (the reference's rule)."""
+    return "pallas" if dev.type == "cuda" else "rowscan"
+
+
 def _pruned_chunk_step(queries, qlens, seg, heap_d, heap_p, heap_s, j0: int,
                        m_total: int, excl_lo, excl_hi, excl_zone, *, metric,
                        chunk: int, halo: int, k: int, excl_span: bool,
@@ -117,10 +127,10 @@ def _pruned_chunk_step(queries, qlens, seg, heap_d, heap_p, heap_s, j0: int,
 
     ``engine_impl='pallas'`` scores the whole group in one kernel launch
     with the last-row capture (the leading pad and trailing overhang are
-    the kernel's ``ref_lead`` / ``ref_len`` masks) and folds the target
+    the kernel's ``ref_lead`` / ``ref_len`` masks, the exclusion ranges its
+    ban, in global columns like the row scan's) and folds the target
     chunk's candidate row with the same ``topk_merge`` — int32 heaps are
-    bitwise equal to the rowscan variant. It takes no exclusion ranges
-    (the caller checks).
+    bitwise equal to the rowscan variant.
     """
     nq, n = queries.shape
     acc = accum_dtype(result_dtype(queries, seg))
@@ -131,7 +141,8 @@ def _pruned_chunk_step(queries, qlens, seg, heap_d, heap_p, heap_s, j0: int,
             queries, seg, qlens, metric, track_start=True,
             return_lastrow=True, ref_offset=j0,
             ref_len=min(max(m_total - j0, 0), seg_len),
-            ref_lead=max(0, -j0), device=queries.device)
+            ref_lead=max(0, -j0), device=queries.device, excl_lo=excl_lo,
+            excl_hi=excl_hi)
         return topk_fold_lastrow(
             (heap_d.to(acc), heap_p, heap_s), lrow[:, halo * chunk:],
             lstart[:, halo * chunk:], j0 + halo * chunk, k, excl_zone,
@@ -150,9 +161,10 @@ def _pruned_chunk_step(queries, qlens, seg, heap_d, heap_p, heap_s, j0: int,
 
 
 def _kernel_topk_scan(queries, reference, qlens, *, k, metric, chunk, zone,
-                      excl_span):
+                      excl_span, excl_lo=None, excl_hi=None):
     """The exact top-K heap through the kernel: the reference streams
-    chunk by chunk through the kernel's chunk carry (start lane on), each
+    chunk by chunk through the kernel's chunk carry (start lane on, the
+    exclusion ranges — ``kernel_bans`` output — as the kernel's ban), each
     chunk's last-row capture folded into the heap — the tile boundaries
     and the merge of ``sdtw_chunked``, so int32 heaps are bitwise its."""
     from repro_torch.kernels.sdtw import kernel_carry_init, sdtw_cuda
@@ -169,7 +181,8 @@ def _kernel_topk_scan(queries, reference, qlens, *, k, metric, chunk, zone,
         _, carry, lrow, lstart = sdtw_cuda(
             queries, r_pad[off:off + chunk], qlens, metric, carry=carry,
             return_carry=True, ref_offset=off, ref_len=min(chunk, m - off),
-            track_start=True, return_lastrow=True, device=queries.device)
+            track_start=True, return_lastrow=True, device=queries.device,
+            excl_lo=excl_lo, excl_hi=excl_hi)
         heap = topk_fold_lastrow(heap, lrow, lstart, off, k, zone, excl_span)
     return heap
 
@@ -196,13 +209,19 @@ def _search_padded(queries, reference, qlens, *, k, metric, chunk, prune,
     if qlens is None:
         qlens = torch.full((nq,), n, dtype=torch.int32, device=dev)
     qlens = as_tensor(qlens, dev, torch.int32)
+    if engine_impl == "pallas":
+        # Tested once here, so that no launch synchronises on them.
+        from repro_torch.kernels.sdtw.ops import kernel_bans
+        excl_lo, excl_hi = kernel_bans(excl_lo, excl_hi, nq, dev,
+                                       test_device=True) or (None, None)
 
     if not prune:
         if engine_impl == "pallas":
             d, p, s = _kernel_topk_scan(
                 queries, reference, qlens, k=k, metric=metric, chunk=chunk,
                 zone=_query_zones(qlens, nq, excl_zone, excl_mode, dev),
-                excl_span=excl_mode == "span")
+                excl_span=excl_mode == "span", excl_lo=excl_lo,
+                excl_hi=excl_hi)
         else:
             d, s, p = engine.sdtw(queries, reference, qlens, metric=metric,
                                   impl="chunked", chunk=chunk, top_k=k,
@@ -211,8 +230,9 @@ def _search_padded(queries, reference, qlens, *, k, metric, chunk, prune,
                                   return_spans=True, device=dev)
         return d, p, s, (n_chunks, 0, 0, n_chunks)
 
-    excl_lo = engine._normalize_excl(excl_lo, nq, dev)
-    excl_hi = engine._normalize_excl(excl_hi, nq, dev)
+    if engine_impl != "pallas":
+        excl_lo = engine._normalize_excl(excl_lo, nq, dev)
+        excl_hi = engine._normalize_excl(excl_hi, nq, dev)
     zone = _query_zones(qlens, nq, excl_zone, excl_mode, dev)
 
     mins, maxs = env
@@ -270,7 +290,8 @@ def search_topk(queries, reference, k: int = 1, *, qlens=None,
     for the per-query default); ``excl_mode`` ('end' | 'span');
     ``normalize``; ``excl_lo``/``excl_hi``; ``cache`` (default
     ``DEFAULT_CACHE``); ``ref_key``; ``engine_impl`` ('auto', 'rowscan'
-    or 'pallas', the hand-written kernel). ``device`` is where it runs:
+    or 'pallas', the hand-written kernel; 'auto' is the kernel on the
+    card, exclusion ranges included). ``device`` is where it runs:
     ``None`` is the CUDA device, ``"cpu"`` the plain PyTorch versions.
     ``mesh`` is not ported yet (ROADMAP queue 1, item 12).
 
@@ -293,11 +314,9 @@ def _execute_search(req: SdtwRequest) -> SearchResult:
     dev = resolve_device(req.device)
     k, metric, chunk = req.top_k, req.metric, req.chunk
     excl_lo, excl_hi = req.excl_lo, req.excl_hi
-    has_excl = excl_lo is not None or excl_hi is not None
     engine_impl = req.engine_impl
     if engine_impl == "auto":
-        engine_impl = ("pallas" if dev.type == "cuda" and not has_excl
-                       else "rowscan")
+        engine_impl = _auto_engine(dev)
     reference = as_tensor(req.reference, dev)
     if req.normalize:
         reference = znorm(reference)

@@ -4,12 +4,13 @@
 advancing every query's DP carry through the row-scan tile loop or the
 hand-written sDTW kernel — distances, spans and top-K matches are
 bitwise-identical to ``engine.sdtw`` for any feed partition (int32).
-``engine.stream()`` is the front door. Not ported yet: ``StreamProfile``
-(the incremental matrix profile, ROADMAP queue 1 item 10) and
-``ShardedStreamSession`` (item 12).
+``engine.stream()`` is the front door. ``StreamProfile`` is the
+incremental matrix profile. Not ported yet: ``ShardedStreamSession``
+(ROADMAP queue 1 item 12).
 """
+from .profile import StreamProfile
 from .session import (DEFAULT_STREAM_CHUNK, AlertEvent, StreamResult,
                       StreamSession)
 
-__all__ = ["StreamSession", "StreamResult", "AlertEvent",
+__all__ = ["StreamSession", "StreamResult", "AlertEvent", "StreamProfile",
            "DEFAULT_STREAM_CHUNK"]

@@ -11,8 +11,10 @@ reproduces ``engine.sdtw`` distances, spans and top-K bitwise (int32).
 On the kernel, top-K heaps, threshold alerts and online pruning all
 consume the kernel's last-row capture (the per-tile candidate row),
 folded with the ``topk_fold_lastrow`` merge the row-scan path uses, so
-both impls produce the same bits; only per-query exclusion zones need
-``impl='rowscan'``.
+both impls produce the same bits. Per-query exclusion ranges ride the
+kernel as its column ban when ``impl='auto'`` picks it on the card; an
+explicit ``impl='pallas'`` with exclusion ranges raises, as in the
+reference.
 
 Mechanics, as in the reference:
 
@@ -42,8 +44,8 @@ never perturbs tile alignment) and returns numpy arrays, as the
 reference does. ``flush()`` pushes the tail through destructively; in
 pruned mode it is terminal. A mid-stream ``flush()`` on a k > 1 session
 shifts every later tile boundary, so the next ``feed()`` warns (top-1
-stays exact). ``StreamProfile`` (ROADMAP item 10) and
-``ShardedStreamSession`` (item 12) are not ported yet.
+stays exact). ``ShardedStreamSession`` (ROADMAP item 12) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine as engine_mod
-from repro_torch.core.distances import big
+from repro_torch.core.distances import INT_FAR, big
 from repro_torch.core.request import StreamRequest
 from repro_torch.core.sdtw import (default_excl_zone, sdtw_carry_init,
                                    sdtw_chunk_batch, sdtw_chunk_batch_topk,
@@ -65,6 +67,7 @@ from repro_torch.core.topk import topk_init
 from repro_torch.device import resolve_device, to_numpy
 from repro_torch.search import cache as cache_mod
 from repro_torch.search.lower_bounds import chunk_envelope, lb_cascade
+from repro_torch.search import search as search_mod
 from repro_torch.search.search import DEFAULT_SPAN_FACTOR, _pruned_chunk_step
 
 #: Default DP tile size — the engine's streaming default.
@@ -134,24 +137,29 @@ class _Bucket:
     carry: tuple                # chunk carry (+ heap in match mode)
     halo: int = 0               # pruned mode: left-context tiles
     thr: Optional[np.ndarray] = None  # pruned mode: per-query k-th best
+    # ``kernel_bans(lo, hi)``: the ranges the kernel takes, or None when
+    # every range is empty (its launches then run without a ban).
+    ban: Optional[tuple] = None
 
 
 def _pallas_step(queries, tile, qlens, kcarry, heap, j0, clen, zone, *,
                  metric, block_q, block_m, k, excl_span, track, want_lastrow,
-                 with_heap):
+                 with_heap, excl_lo=None, excl_hi=None):
     """One streamed tile through the sDTW kernel: advance the kernel chunk
     carry and — when the session consumes candidate rows — fold the
     last-row capture into the top-K heap with the per-tile
-    ``topk_merge`` the rowscan path runs. ``block_m`` is the wavefront
-    kernel's staged tile; a rows-kernel launch stages none, so it is
-    passed to wavefront launches only."""
+    ``topk_merge`` the rowscan path runs. ``excl_lo``/``excl_hi`` are the
+    kernel's per-query ban (global columns, on the device), or ``None``.
+    ``block_m`` is the wavefront kernel's staged tile; a rows-kernel
+    launch stages none, so it is passed to wavefront launches only."""
     from repro_torch.kernels.sdtw import choose_kernel, sdtw_cuda
     if choose_kernel(queries.shape[1]) != "wavefront":
         block_m = None
     out = sdtw_cuda(queries, tile, qlens, metric, block_q=block_q,
                     block_m=block_m, carry=kcarry, return_carry=True,
                     ref_offset=j0, ref_len=clen, track_start=track,
-                    return_lastrow=want_lastrow, device=queries.device)
+                    return_lastrow=want_lastrow, device=queries.device,
+                    excl_lo=excl_lo, excl_hi=excl_hi)
     if not want_lastrow:
         _, kc = out
         return kc, None, None
@@ -182,7 +190,8 @@ class StreamSession:
     """Online sDTW monitor: a query batch streamed against an unbounded
     reference, one ``feed()`` at a time. See the module docstring;
     ``engine.stream()`` is the front door. ``device=None`` is the CUDA
-    device."""
+    device; ``impl='auto'`` is the kernel there and the row scan
+    elsewhere."""
 
     def __init__(self, queries, *, qlens=None, metric: str = "abs_diff",
                  chunk: Optional[int] = None, impl: str = "rowscan",
@@ -196,9 +205,9 @@ class StreamSession:
                  cache: Optional[cache_mod.EnvelopeCache] = None,
                  ref_key=None, block_q: Optional[int] = None,
                  block_m: Optional[int] = None, device=None):
-        if impl not in ("rowscan", "pallas"):
-            raise ValueError(f"impl must be 'rowscan' or 'pallas' for a "
-                             f"stream session, got {impl!r}")
+        if impl not in ("auto", "rowscan", "pallas"):
+            raise ValueError(f"impl must be 'auto', 'rowscan' or 'pallas' "
+                             f"for a stream session, got {impl!r}")
         StreamRequest(
             queries=queries, qlens=qlens, metric=metric, impl=impl,
             chunk=chunk, top_k=top_k, excl_zone=excl_zone,
@@ -211,7 +220,9 @@ class StreamSession:
 
         self.device = resolve_device(device)
         self.metric = metric
-        self.impl = impl
+        self._auto = impl == "auto"
+        self.impl = search_mod._auto_engine(self.device) if self._auto \
+            else impl
         self.chunk = int(DEFAULT_STREAM_CHUNK if chunk is None else chunk)
         self.top_k = top_k
         self.excl_mode = excl_mode
@@ -303,13 +314,17 @@ class StreamSession:
 
     def _bucket(self, idxs, queries, qlens, lo, hi, zone, halo, carry=None,
                 thr=None) -> _Bucket:
+        from repro_torch.kernels.sdtw.ops import kernel_bans
+
         def dev(x, dtype=None):
             return torch.from_numpy(np.array(x)).to(self.device, dtype)
+        lo, hi = dev(lo, torch.int32), dev(hi, torch.int32)
         return _Bucket(idxs=list(idxs), queries=dev(queries),
-                       qlens=dev(qlens, torch.int32),
-                       lo=dev(lo, torch.int32), hi=dev(hi, torch.int32),
+                       qlens=dev(qlens, torch.int32), lo=lo, hi=hi,
                        zone=dev(zone, torch.int32), carry=carry, halo=halo,
-                       thr=thr)
+                       thr=thr, ban=kernel_bans(lo, hi, len(idxs),
+                                                self.device,
+                                                test_device=True))
 
     # ------------------------------------------------------------------
     # carry plumbing
@@ -325,16 +340,18 @@ class StreamSession:
         only for a real top-K and asks for the last-row capture exactly
         when a candidate row is consumed (top-K folding or alerts)."""
         self._k = 1 if self.top_k is None else self.top_k
-        if self.impl == "pallas":
-            self._wants_heap = self.top_k is not None
-            self._want_lastrow = (self.top_k is not None
-                                  or self.alert_threshold is not None)
-        else:
-            self._wants_heap = (self.top_k is not None or self.return_spans
-                                or self.return_positions
-                                or self.alert_threshold is not None)
-            self._want_lastrow = self.alert_threshold is not None
+        self._wants_heap = self._heap_on(self.impl)
+        self._want_lastrow = (self.alert_threshold is not None
+                              or (self.impl == "pallas"
+                                  and self.top_k is not None))
         self._track = self.return_spans or self.excl_mode == "span"
+
+    def _heap_on(self, impl: str) -> bool:
+        """Whether ``impl``'s exact-mode carry ends in the top-K heap."""
+        if impl == "pallas":
+            return self.top_k is not None
+        return (self.top_k is not None or self.return_spans
+                or self.return_positions or self.alert_threshold is not None)
 
     def _acc(self, b: _Bucket):
         qdt = np.dtype(str(b.queries.dtype).replace("torch.", ""))
@@ -343,24 +360,25 @@ class StreamSession:
                                                np.floating)
                 else torch.int32)
 
-    def _fresh_carry(self, b: _Bucket):
+    def _fresh_carry(self, b: _Bucket, impl: Optional[str] = None):
         nb, n = b.queries.shape
         acc = self._acc(b)
         dev = self.device
+        impl = self.impl if impl is None else impl
         if self.prune:
             # Pruned mode scores surviving tiles from fresh halo-warmed
             # carries (on either impl) — the session carry is the heap.
             return topk_init(nb, self._k, acc, device=dev)
-        if self.impl == "pallas":
+        if impl == "pallas":
             if self._dtype is None:
                 return None          # accumulator unknown until first feed
             from repro_torch.kernels.sdtw import kernel_carry_init
             kc = kernel_carry_init(nb, n, acc, track_start=self._track,
                                    device=dev)
-            if self._wants_heap:
+            if self._heap_on(impl):
                 return kc + topk_init(nb, self._k, acc, device=dev)
             return kc
-        if self._wants_heap:
+        if self._heap_on(impl):
             return (sdtw_carry_init(nb, n, acc, track_start=self._track,
                                     device=dev)
                     + topk_init(nb, self._k, acc, device=dev))
@@ -455,12 +473,14 @@ class StreamSession:
         if self.impl == "pallas":
             kc = carry[:-3] if self._wants_heap else carry
             heap = carry[-3:] if self._wants_heap else None
+            lo, hi = b.ban or (None, None)
             return _pallas_step(
                 b.queries, tile, b.qlens, kc, heap, j0, clen, b.zone,
                 metric=self.metric, block_q=self.block_q,
                 block_m=self.block_m, k=self._k,
                 excl_span=self.excl_mode == "span", track=self._track,
-                want_lastrow=self._want_lastrow, with_heap=self._wants_heap)
+                want_lastrow=self._want_lastrow, with_heap=self._wants_heap,
+                excl_lo=lo, excl_hi=hi)
         if self._wants_heap:
             return _heap_step(b.queries, tile, b.qlens, carry, j0, j0 + clen,
                               clen, b.lo, b.hi, b.zone, metric=self.metric,
@@ -564,9 +584,9 @@ class StreamSession:
         hd, hp, hs = _pruned_chunk_step(
             b.queries, b.qlens, torch.from_numpy(group).to(self.device),
             heap[0], heap[1], heap[2], j0 - b.halo * self.chunk, j0 + clen,
-            b.lo, b.hi, b.zone, metric=self.metric, chunk=self.chunk,
-            halo=b.halo, k=self._k, excl_span=self.excl_mode == "span",
-            engine_impl=self.impl)
+            *(b.ban or (None, None)), b.zone, metric=self.metric,
+            chunk=self.chunk, halo=b.halo, k=self._k,
+            excl_span=self.excl_mode == "span", engine_impl=self.impl)
         return "processed", (hd, hp, hs)
 
     # ------------------------------------------------------------------
@@ -667,13 +687,67 @@ class StreamSession:
     # snapshot / restore (fault-tolerant serving)
     # ------------------------------------------------------------------
 
+    def _relayout(self, b: _Bucket, carry, src: str, dst: str):
+        """Bucket ``b``'s carry moved from impl ``src``'s layout to
+        ``dst``'s. Pruned carries are the heap on both. In exact mode what
+        ``results()`` reads is kept: the kernel's top-1 ``(best, end,
+        start)`` and a k = 1 heap hold the same triple, the value and
+        boundary lanes are the same on both; lanes that no output reads
+        are refilled (ends and starts -1, boundary start lanes INT_FAR)."""
+        if self.prune or src == dst:
+            return carry
+        track = self._track
+        if carry is None:            # a kernel carry before the first feed
+            return self._fresh_carry(b, dst)
+        if src == "pallas":
+            kc, heap = carry[:5 if track else 3], carry[5 if track else 3:]
+            if track:
+                bcol, bstart, best, pos, start = kc
+            else:
+                (bcol, best, pos), bstart = kc, None
+                start = torch.full_like(pos, -1)
+            if not self._heap_on(dst):
+                return bcol, best
+            if not heap:             # the top-1 as a k = 1 heap
+                heap = (best[:, None], pos[:, None], start[:, None])
+            return (bcol,) + ((bstart,) if track else ()) + (best,) + heap
+        if self._dtype is None:
+            return None
+        bcol, heap = carry[0], ()
+        if self._heap_on(src):
+            best, heap = carry[-4], carry[-3:]
+            bstart = carry[1] if track else None
+            pos, start = heap[1][:, 0], heap[2][:, 0]
+        else:
+            best, bstart = carry[1], None
+            pos = start = torch.full(best.shape, -1, dtype=torch.int32,
+                                     device=best.device)
+        if track and bstart is None:
+            bstart = torch.full(bcol.shape, INT_FAR, dtype=torch.int32,
+                                device=bcol.device)
+        kc = (bcol, bstart, best, pos, start) if track else (bcol, best, pos)
+        return kc + (heap if self._heap_on(dst) else ())
+
     def snapshot(self) -> dict:
         """Serialize the full session state as a flat dict of numpy arrays
         in the reference's format — ``np.savez(path, **snap)``-ready.
-        ``restore()`` (of either package) continues bit for bit."""
+        ``restore()`` (of either package) continues bit for bit.
+
+        The reference's kernel route takes no exclusion ranges, so a
+        kernel session whose ranges ban (``impl='auto'`` on the card) is
+        written in the row scan's layout under ``impl='rowscan'``, which
+        both packages restore with its ranges. A session opened with
+        ``'auto'`` records it (``meta['auto']``, which the reference
+        ignores) and ``restore()`` here resolves it again on its device."""
         from repro_torch.kernels.sdtw import carry_to_numpy
+        impl, carries = self.impl, [b.carry for b in self._buckets]
+        if impl == "pallas" and any(b.ban is not None
+                                    for b in self._buckets):
+            impl = "rowscan"
+            carries = [self._relayout(b, b.carry, self.impl, impl)
+                       for b in self._buckets]
         meta = dict(
-            version=_SNAP_VERSION, metric=self.metric, impl=self.impl,
+            version=_SNAP_VERSION, metric=self.metric, impl=impl,
             chunk=self.chunk, top_k=self.top_k, excl_mode=self.excl_mode,
             return_spans=self.return_spans,
             return_positions=self.return_positions, prune=self.prune,
@@ -694,10 +768,11 @@ class StreamSession:
             n_buckets=len(self._buckets),
             bucket_idxs=[b.idxs for b in self._buckets],
             bucket_halos=[b.halo for b in self._buckets],
-            carry_lens=[0 if b.carry is None else len(b.carry)
-                        for b in self._buckets],
+            carry_lens=[0 if c is None else len(c) for c in carries],
             n_ring=len(self._ring),
         )
+        if self._auto:
+            meta["auto"] = True
         snap = {"meta": np.array(json.dumps(meta)),
                 "buffer": np.asarray(self._buf)}
         if self._env_mins:
@@ -710,8 +785,8 @@ class StreamSession:
                 snap[f"b{bi}_{name}"] = to_numpy(getattr(b, name))
             if b.thr is not None:
                 snap[f"b{bi}_thr"] = np.asarray(b.thr)
-            if b.carry is not None:
-                for ci, leaf in enumerate(carry_to_numpy(b.carry)):
+            if carries[bi] is not None:
+                for ci, leaf in enumerate(carry_to_numpy(carries[bi])):
                     snap[f"b{bi}_carry{ci}"] = leaf
         return snap
 
@@ -720,9 +795,10 @@ class StreamSession:
                 device=None) -> "StreamSession":
         """Rebuild a session from ``snapshot()`` output of either package
         (or an ``np.load`` of it), its queries and carries on ``device``
-        (``None``: the CUDA device). ``on_alert``/``cache`` are not
-        serialized — pass them again; ``ref_key`` overrides the
-        snapshotted key."""
+        (``None``: the CUDA device). A session opened with ``impl='auto'``
+        takes ``'auto'``'s impl on ``device``, its carries moved to that
+        layout. ``on_alert``/``cache`` are not serialized — pass them
+        again; ``ref_key`` overrides the snapshotted key."""
         meta = json.loads(str(np.asarray(snap["meta"])[()]))
         if meta["version"] != _SNAP_VERSION:
             raise ValueError(f"snapshot version {meta['version']} not "
@@ -733,6 +809,9 @@ class StreamSession:
                      "return_spans", "return_positions", "prune",
                      "span_cap", "alert_threshold", "block_q", "block_m"):
             setattr(self, name, meta[name])
+        self._auto = bool(meta.get("auto", False))
+        if self._auto:
+            self.impl = search_mod._auto_engine(self.device)
         self.ref_key = meta["ref_key"] if ref_key is None else ref_key
         self.cache = cache_mod.DEFAULT_CACHE if cache is None else cache
         self.on_alert = on_alert
@@ -772,11 +851,13 @@ class StreamSession:
             carry = (tuple(torch.from_numpy(np.array(
                 snap[f"b{bi}_carry{ci}"])).to(self.device)
                 for ci in range(ncar)) if ncar else None)
-            self._buckets.append(self._bucket(
+            b = self._bucket(
                 meta["bucket_idxs"][bi], snap[f"b{bi}_queries"],
                 snap[f"b{bi}_qlens"], snap[f"b{bi}_lo"], snap[f"b{bi}_hi"],
                 snap[f"b{bi}_zone"], meta["bucket_halos"][bi], carry,
                 np.asarray(snap[f"b{bi}_thr"]) if f"b{bi}_thr" in snap
-                else None))
+                else None)
+            b.carry = self._relayout(b, carry, meta["impl"], self.impl)
+            self._buckets.append(b)
         self._max_halo = max(b.halo for b in self._buckets)
         return self

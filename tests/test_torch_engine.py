@@ -70,15 +70,16 @@ def test_cpu_dispatch_is_the_reference_rule(shape, kw):
 
 
 def test_cuda_dispatch_rule_3():
-    """Rule 3 reads "the tensors are on a CUDA device and there is no
-    exclusion zone → the kernel"; the structural rules before it hold."""
+    """Rule 3 reads "the tensors are on a CUDA device → the kernel", with
+    exclusion zones as the kernel's per-query ban; the structural rules
+    before it hold."""
     ci = tengine.choose_impl
     assert ci(8, 16, 4096, backend="cuda") == "pallas"
     assert ci(8, 16, tengine.CHUNK_THRESHOLD, backend="cuda") == "pallas"
     assert ci(8, 16, 4096) == "pallas"                  # the card's default
     assert ci(8, 16, 4096, backend="cuda", chunk=64) == "chunked"
     assert ci(8, 16, 4096, backend="cuda", top_k=3) == "chunked"
-    assert ci(8, 16, 4096, backend="cuda", has_exclusion=True) == "rowscan"
+    assert ci(8, 16, 4096, backend="cuda", has_exclusion=True) == "pallas"
     assert ci(8, 16, 4096, backend="cuda", mesh=object()) == "sharded"
     with pytest.raises(NotImplementedError, match="item 11"):
         ci(8, 16, 4096, backend="cuda", tune="model")
@@ -164,6 +165,34 @@ def test_ragged_buckets_match_reference(rng):
                _jsdtw(qs, jnp.asarray(r), **kw), str(kw))
     with pytest.raises(ValueError, match="empty"):
         tengine.bucketize([3, 0])
+
+
+def test_ragged_list_on_a_cuda_backend_takes_the_kernel(rng, monkeypatch):
+    """A ragged list passes exclusion arrays of -1 to every bucket. On a
+    CUDA backend ``impl='auto'`` now resolves each bucket to the kernel,
+    which reads the empty ranges as no ban. Here the dispatch is asked as
+    for the card, and the kernel's CPU stand-in runs; the answers are the
+    reference's."""
+    import repro_torch.kernels.sdtw.ops as ops
+    chosen, bans = [], []
+    real_choose, real_plain = tengine.choose_impl, ops.sdtw_kernel_plain
+
+    def as_on_the_card(*a, **kw):
+        chosen.append((kw["has_exclusion"], real_choose(
+            *a, **dict(kw, backend="cuda"))))
+        return chosen[-1][1]
+
+    def plain(*a):
+        bans.append(a[-2:])
+        return real_plain(*a)
+    monkeypatch.setattr(tengine, "choose_impl", as_on_the_card)
+    monkeypatch.setattr(ops, "sdtw_kernel_plain", plain)
+    qs = [rng.integers(-30, 30, n).astype(np.int32) for n in (3, 17, 40)]
+    r = rng.integers(-30, 30, 90).astype(np.int32)
+    got = _tsdtw(qs, r, return_spans=True)
+    assert chosen == [(True, "pallas")] * 3
+    assert bans == [(None, None)] * 3
+    _equal(got, _jsdtw(qs, jnp.asarray(r), return_spans=True))
 
 
 # ---------------------------------------------------------------------------
@@ -271,8 +300,8 @@ def test_matsa_errors():
                       (dict(mode="query_filtering"), "queries")):
         with pytest.raises(ValueError, match=match):
             tmatsa(r, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmatsa(r, mode="self_join", window=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tmatsa(r, mode="self_join", window=8, mesh=object(), device="cpu")
 
 
 def test_workload_shapes_and_generator_match_reference():

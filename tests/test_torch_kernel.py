@@ -16,15 +16,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.sdtw import (sdtw_batch, sdtw_carry_init,
+                             sdtw_chunk_batch_topk)
+from repro.core.topk import topk_init
 from repro.kernels.sdtw import pallas_carry_init, sdtw_pallas
 from repro_torch.core.matsa_api import load_real_workload_shapes
-from repro_torch.kernels.sdtw import (ROWS_MAX_N, carry_from_numpy,
-                                      carry_to_numpy, choose_kernel,
+from repro_torch.kernels.sdtw import (LAUNCHES, ROWS_MAX_N,
+                                      carry_from_numpy, carry_to_numpy,
+                                      choose_kernel,
                                       kernel_carry_init, resolve_blocks,
                                       resolve_rows, sdtw_cuda,
                                       sdtw_kernel_plain)
 from repro_torch.kernels.sdtw.ops import (ROWS_PER_LANE, SCRATCH_LIMIT,
-                                          scratch_batch, smem_bytes)
+                                          kernel_bans, scratch_batch,
+                                          smem_bytes, variant)
 
 # The (B, N, M, block_q, block_m) sweep of tests/test_sdtw_kernel.py.
 SHAPES = [
@@ -267,3 +272,153 @@ def test_card_is_the_default_device():
         sdtw_cuda(np.zeros((1, 4), np.int32), np.zeros(8, np.int32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         kernel_carry_init(1, 4, torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The per-query column ban (the kernels' BAN instantiations) against the
+# reference's row scan with excl_lo/excl_hi, which bans by BIG distances.
+# Values are compared bitwise; a start lane only where its value is below
+# BIG (the reference leaves the start of a saturated cell unspecified).
+# ---------------------------------------------------------------------------
+
+INT_FAR = 2**31 - 1
+#: (j0, M, ref_lead, ref_len, bans): a slice of global columns
+#: [j0, j0 + M); each query's [lo, hi) in global columns.
+BAN_SLICES = {
+    # Bans across both slice edges, inside, before, after, empty, all.
+    "slice_edge": (40, 64, 0, 64, [(20, 50), (95, 130), (50, 60), (0, 30),
+                                   (104, 200), (55, 55), (0, INT_FAR)]),
+    # A halo group: starts left of the reference (negative j0, ref_lead).
+    "negative_j0": (-24, 72, 24, 72, [(-10, 5), (0, 8), (30, 47), (-50, -30),
+                                      (20, 20), (47, 48), (0, INT_FAR)]),
+    # A right-padded tail slice (ref_len < M) with a ban past its end.
+    "tail": (64, 48, 0, 30, [(70, 100), (90, 200), (60, 66), (93, 94),
+                             (10, 12), (64, 94), (0, INT_FAR)]),
+}
+
+
+def _masked_equal(g, w, vals, msg):
+    """Start lanes equal where their values are below BIG."""
+    live = np.asarray(vals) < np.asarray(vals).dtype.type(
+        2**29 if np.asarray(vals).dtype.kind == "i" else np.inf)
+    np.testing.assert_array_equal(np.asarray(g)[live], np.asarray(w)[live],
+                                  err_msg=msg)
+
+
+@pytest.mark.parametrize("case", sorted(BAN_SLICES))
+@pytest.mark.parametrize("dtype,metric", [(np.int32, "abs_diff"),
+                                          (np.int32, "square_diff"),
+                                          (np.float32, "abs_diff")])
+def test_plain_version_bans_match_rowscan_chunk(case, dtype, metric, rng):
+    """One slice with a carry in: the last row, the boundary column and the
+    harvest of the plain version with bans equal the reference's
+    ``sdtw_chunk_batch_topk`` (k = 1) with the same global excl_lo/excl_hi,
+    masks and carry."""
+    j0, m, lead, rlen, bans = BAN_SLICES[case]
+    b, n = len(bans), 7
+    q = rng.integers(-30, 30, (b, n)).astype(dtype)
+    r = rng.integers(-30, 30, m).astype(dtype)
+    qlens = np.array([7, 1, 4, 7, 6, 2, 7], np.int32)
+    lo = np.array([x for x, _ in bans], np.int32)
+    hi = np.array([y for _, y in bans], np.int32)
+    acc = jnp.float32 if dtype == np.float32 else jnp.int32
+    # A carry from an earlier slice (no ban there), in both layouts.
+    prev = rng.integers(-30, 30, 20).astype(dtype)
+    _, c_prev = sdtw_pallas(jnp.asarray(q), jnp.asarray(prev),
+                            jnp.asarray(qlens), metric, return_carry=True,
+                            track_start=True, ref_offset=j0 - 20)
+    bcol, bstart = np.asarray(c_prev[0]), np.asarray(c_prev[1])
+    if lead:                         # a halo group starts from a fresh carry
+        bcol, bstart = (np.asarray(x) for x in sdtw_carry_init(
+            b, n, acc, track_start=True)[:2])
+    j_carry = (jnp.asarray(bcol), jnp.asarray(bstart),
+               jnp.full((b,), 2**29 if acc == jnp.int32 else jnp.inf, acc))
+    want = sdtw_chunk_batch_topk(
+        jnp.asarray(q), jnp.asarray(r), jnp.asarray(qlens),
+        j_carry + topk_init(b, 1, acc), j0, j0 + rlen, metric,
+        jnp.asarray(lo), jnp.asarray(hi), 1, jnp.zeros((b,), jnp.int32),
+        track_start=True, clen=rlen if 0 < rlen < m else None,
+        return_lastrow=True)
+    w_bcol, w_bstart, _, w_d, w_p, w_s, w_lrow, w_lstart = (
+        np.asarray(x) for x in want)
+    fresh = kernel_carry_init(b, n, torch.from_numpy(r).dtype, True, "cpu")
+    carry = (torch.tensor(bcol), torch.tensor(bstart)) + fresh[2:]
+    (d, s, e), (g_bcol, g_bstart, *_), g_lrow, g_lstart = sdtw_cuda(
+        q, r, qlens, metric, carry=carry, return_spans=True,
+        return_carry=True, return_lastrow=True, ref_offset=j0,
+        ref_len=rlen, ref_lead=lead, excl_lo=lo, excl_hi=hi, device="cpu")
+    live = slice(lead, rlen)
+    np.testing.assert_array_equal(g_lrow[:, live].numpy(), w_lrow[:, live])
+    _masked_equal(g_lstart[:, live], w_lstart[:, live], w_lrow[:, live],
+                  "last-row starts")
+    if rlen:
+        np.testing.assert_array_equal(g_bcol.numpy(), w_bcol)
+        _masked_equal(g_bstart, w_bstart, w_bcol, "boundary starts")
+    np.testing.assert_array_equal(d.numpy(), w_d[:, 0])
+    np.testing.assert_array_equal(e.numpy(), w_p[:, 0])
+    np.testing.assert_array_equal(s.numpy(), w_s[:, 0])
+    assert d[-1] == big_of(d) and e[-1] == -1       # the fully banned row
+
+
+def big_of(t):
+    return 2**29 if not t.dtype.is_floating_point else float("inf")
+
+
+@pytest.mark.parametrize("spans", [False, True])
+@pytest.mark.parametrize("kernel", ["rows", "wavefront"])
+def test_plain_version_bans_match_rowscan_whole(spans, kernel, rng):
+    """The whole reference in one call: distances, ends (and starts) with a
+    per-query ban equal the reference's ``sdtw_batch(impl='rowscan')``
+    with ``excl_lo``/``excl_hi``, self-join bands and a fully banned row
+    among them; the same call in slices through the carry agrees."""
+    r = rng.integers(-40, 40, 150).astype(np.int32)
+    starts = np.array([0, 30, 61, 100, 137])
+    w = 12
+    q = np.stack([r[s:s + w] if s + w <= 150 else np.zeros(w, np.int32)
+                  for s in starts])
+    lo = np.maximum(starts - w // 2, 0).astype(np.int32)
+    hi = (starts + w + w // 2).astype(np.int32)
+    lo[-1], hi[-1] = 0, INT_FAR
+    want = sdtw_batch(jnp.asarray(q), jnp.asarray(r), None, "abs_diff",
+                      "rowscan", jnp.asarray(lo), jnp.asarray(hi),
+                      return_positions=not spans, return_spans=spans)
+    got = sdtw_cuda(q, r, excl_lo=lo, excl_hi=hi, return_positions=not spans,
+                    return_spans=spans, kernel=kernel, device="cpu")
+    # The fully banned row saturates: the kernel contract keeps its end
+    # (and start) at -1 where the row scan reports column 0 (unspecified
+    # in the reference); every other query is compared bitwise.
+    assert got[0][-1] == 2**29 and (got[-1][-1] == -1).all()
+    _equal([g[:-1] for g in got], [w[:-1] for w in want])
+    carry = None
+    for off in range(0, 150, 64):
+        sl = np.zeros(64, np.int32)
+        cl = min(64, 150 - off)
+        sl[:cl] = r[off:off + cl]
+        _, carry = sdtw_cuda(q, sl, carry=carry, ref_offset=off, ref_len=cl,
+                             excl_lo=lo, excl_hi=hi, return_carry=True,
+                             track_start=spans, device="cpu")
+    chained = (carry[2], carry[4], carry[3]) if spans else (carry[1],
+                                                             carry[2])
+    _equal(chained, got)
+
+
+def test_kernel_bans_normalization():
+    """Empty ranges for every query launch without a ban; a scalar range
+    applies to every query; a lone bound or a wrong shape raises. The ban
+    instantiations count under their own ``LAUNCHES`` keys."""
+    assert kernel_bans(None, None, 3, "cpu") is None
+    assert kernel_bans(np.full(3, -1), np.full(3, -1), 3, "cpu") is None
+    assert kernel_bans(np.array([5, 0, 2]), np.array([5, 0, 1]), 3,
+                       "cpu") is None
+    lo, hi = kernel_bans(4, 9, 3, "cpu")
+    assert lo.tolist() == [4] * 3 and hi.tolist() == [9] * 3
+    assert lo.dtype == torch.int32 and lo.is_contiguous()
+    with pytest.raises(ValueError, match="together"):
+        kernel_bans(1, None, 3, "cpu")
+    with pytest.raises(ValueError, match="scalars or"):
+        kernel_bans(np.zeros(2), np.ones(2), 3, "cpu")
+    assert variant(True, True, "rows", True) == "rows_lastrow_ban"
+    assert variant(False, False, "wavefront") == "wavefront_plain"
+    assert {k for k in LAUNCHES if k.endswith("_ban")} == {
+        f"{k}_{v}_ban" for k in ("rows", "wavefront")
+        for v in ("plain", "span", "lastrow")}

@@ -107,6 +107,46 @@ def test_rows_kernel_every_r_and_ragged_lengths(rows, mode, cuda):
         np.testing.assert_array_equal(g, w)
 
 
+#: Per-query banned global column ranges for a slice at offset 100 of 70
+#: columns: across either edge, inside, outside, empty, everything.
+BANS = [(90, 130), (150, 400), (110, 112), (0, 50), (120, 120),
+        (0, 2**31 - 1), (169, 170), (100, 170)]
+
+
+@pytest.mark.parametrize("lead,rlen", [(0, 70), (6, 50)])
+@pytest.mark.parametrize("dtype,metric", [(np.int32, "abs_diff"),
+                                          (np.int32, "square_diff"),
+                                          (np.float32, "abs_diff")])
+@pytest.mark.parametrize("mode", ["plain", "span", "lastrow",
+                                  "span_lastrow"])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_bans_equal_plain(lead, rlen, dtype, metric, mode, kernel,
+                                 cuda):
+    """The ban instantiations, every variant, against the plain version
+    with the same bans, with a carry in; they count under ``_ban``."""
+    rng = np.random.default_rng(len(mode) + rlen)
+    b = len(BANS)
+    q = rng.integers(-40, 40, (b, 21)).astype(dtype)
+    r = rng.integers(-40, 40, 70).astype(dtype)
+    qlens = rng.integers(1, 22, b).astype(np.int32)
+    lo = np.array([x for x, _ in BANS], np.int32)
+    hi = np.array([y for _, y in BANS], np.int32)
+    _, carry = sdtw_cuda(q, rng.integers(-40, 40, 30).astype(dtype), qlens,
+                         metric, return_carry=True, ref_offset=70,
+                         track_start=mode.startswith("span"), device="cpu")
+    reset_launches()
+    got, want = _both((q, r, qlens, metric), dict(
+        carry=[c.to(cuda) for c in carry], return_carry=True,
+        return_positions=True, return_spans=mode.startswith("span"),
+        return_lastrow=mode.endswith("lastrow"), ref_offset=100,
+        ref_lead=lead, ref_len=rlen, excl_lo=lo, excl_hi=hi, kernel=kernel),
+        cuda)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    var = "lastrow" if mode.endswith("lastrow") else mode.split("_")[0]
+    assert LAUNCHES[f"{kernel}_{var}_ban"] == 1, LAUNCHES
+
+
 @pytest.mark.parametrize("lead,rlen", [(0, 40), (3, 64), (5, 5), (0, 0),
                                        (10, 70)])
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -176,9 +216,10 @@ def test_kernel_counts_launches_and_raises(cuda):
         sdtw_cuda(q, r, device=cuda, kernel=kernel)
         sdtw_cuda(q, r, return_spans=True, device=cuda, kernel=kernel)
         sdtw_cuda(q, r, return_lastrow=True, device=cuda, kernel=kernel)
-    assert LAUNCHES == {"rows_plain": 1, "rows_span": 1, "rows_lastrow": 1,
-                        "wavefront_plain": 1, "wavefront_span": 1,
-                        "wavefront_lastrow": 1}
+    want = dict.fromkeys(LAUNCHES, 0)      # the "_ban" keys stay at 0
+    want.update(rows_plain=1, rows_span=1, rows_lastrow=1,
+                wavefront_plain=1, wavefront_span=1, wavefront_lastrow=1)
+    assert LAUNCHES == want
     with pytest.raises(ValueError, match="up to"):
         sdtw_cuda(torch.zeros((1, ROWS_MAX_N + 1), dtype=torch.int32), r,
                   device=cuda, kernel="rows")

@@ -90,7 +90,8 @@ def test_search_kernel_route_equals_plain_route(case, cuda):
 
 def test_search_auto_takes_the_kernel_on_the_card(cuda):
     """``engine_impl='auto'`` on the card is the kernel, for a padded
-    batch and a ragged list; exclusion ranges take the rowscan route."""
+    batch and a ragged list; exclusion ranges take the kernel too, as its
+    column ban, and equal the rowscan route."""
     rng = np.random.default_rng(3)
     ref = level_shifted(rng, 2000, 250)
     q = np.stack([ref[100:132], ref[900:932]])
@@ -106,9 +107,12 @@ def test_search_auto_takes_the_kernel_on_the_card(cuda):
     _same(ragged, search_topk([q[0, :20], q[1]], ref, k=2, chunk=128,
                               engine_impl="rowscan", device=cuda))
     reset_launches()
-    search_topk(q, ref, k=2, chunk=128, excl_lo=np.array([0, 0]),
-                excl_hi=np.array([50, 50]), device=cuda)
-    assert sum(LAUNCHES.values()) == 0
+    excl = dict(excl_lo=np.array([0, 880]), excl_hi=np.array([150, 950]))
+    banned = search_topk(q, ref, k=2, chunk=128, device=cuda, **excl)
+    assert LAUNCHES["rows_lastrow_ban"] >= 1
+    assert sum(LAUNCHES.values()) == LAUNCHES["rows_lastrow_ban"]
+    _same(banned, search_topk(q, ref, k=2, chunk=128, engine_impl="rowscan",
+                              device=cuda, **excl))
 
 
 @pytest.mark.parametrize("n", [7, 120, 512])

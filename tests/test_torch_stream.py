@@ -435,6 +435,55 @@ def test_stream_auto_impl_and_excl_ranges(rng):
                  excl_zone=jnp.asarray([1, 2, 3]), return_spans=True))
 
 
+BANNED = [  # sessions that ban: every carry layout of either impl
+    dict(top_k=2, return_spans=True, excl_zone=np.array([1, 2, 3])),
+    dict(return_spans=True),
+    dict(return_positions=True, alert_threshold=30),
+    dict(),
+    dict(top_k=2, excl_mode="span"),
+    dict(top_k=2, prune=True, return_spans=True),
+]
+
+
+@pytest.mark.parametrize("kw", BANNED,
+                         ids=["-".join(k) or "plain" for k in BANNED])
+def test_kernel_route_with_bans_restores_across_packages(kw, rng,
+                                                         monkeypatch):
+    """A session that ``impl='auto'`` runs on the kernel with exclusion
+    ranges (as on the card; its plain version here) snapshots in the row
+    scan's layout under ``impl='rowscan'``: the reference restores it and
+    honours the ranges, the port restores it onto the kernel again, and
+    both continue bitwise equal to the reference fed every sample."""
+    import repro_torch.search.search as search_mod
+    monkeypatch.setattr(search_mod, "_auto_engine", lambda dev: "pallas")
+    q = rng.integers(-9, 9, (3, 6)).astype(np.int32)
+    r = rng.integers(-9, 9, 90).astype(np.int32)
+    r[40:46] = q[1]                     # an exact match inside its ban
+    lo, hi = np.array([0, 38, 70], np.int32), np.array([12, 50, 71], np.int32)
+    kw = dict(kw, chunk=16, excl_lo=lo, excl_hi=hi)
+    src = _feed(stream(q, cache=EnvelopeCache(), **kw), r[:37], [20, 17])
+    assert src.impl == "pallas"
+    assert all(b.ban is not None for b in src._buckets)
+    snap = src.snapshot()
+    meta = json.loads(str(snap["meta"]))
+    assert (meta["impl"], meta["auto"]) == ("rowscan", True)
+    want = _feed(jstream(q, impl="rowscan", cache=JEnvelopeCache(), **kw),
+                 r, [37, 53])
+    jdst = JStreamSession.restore(snap, cache=JEnvelopeCache())
+    tdst = StreamSession.restore(snap, device="cpu", cache=EnvelopeCache())
+    assert tdst.impl == "pallas"
+    for dst, since in ((jdst, 32), (tdst, 32), (src, 0)):
+        dst.feed(r[37:])
+        _same(dst.results(), want.results())
+        assert [dataclass_tuple(e) for e in dst.alerts] == \
+            [dataclass_tuple(e) for e in want.alerts if e.tile_start >= since]
+    # The port's restore on the CPU, where 'auto' is the row scan.
+    monkeypatch.undo()
+    cpu = StreamSession.restore(snap, device="cpu", cache=EnvelopeCache())
+    assert cpu.impl == "rowscan"
+    _same(cpu.feed(r[37:]).results(), want.results())
+
+
 @pytest.mark.parametrize("impl", ["rowscan", "pallas"])
 def test_golden_stream_bitwise(impl):
     """The committed streaming fixture ``sdtw_stream_v1.npz``, reproduced
