@@ -11,15 +11,19 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
   1. card identity (``nvidia-smi`` name and power limit, CUDA name);
   2. build every kernel from ``src/repro_torch/kernels/*/csrc`` with nvcc,
      all sources in parallel (timed; ptxas registers and spills logged);
-  3. both kernels (rows and wavefront), every variant, against their
-     plain PyTorch version on the card: int32 and float32, both metrics,
-     plain / span / last-row, variable query lengths, R not dividing N,
-     ``ref_lead``/``ref_len`` masks, carry chaining, block policy
-     invariance, N up to 1536, and N = 5000 on the wavefront kernel in
-     shared memory and in its global scratch — int32 and integer-valued
-     float32 bitwise, real-valued float32 within ``rtol=1e-5``; then the
-     ban (per-query column bans across slice edges, at a negative offset,
-     empty and total), every variant, bitwise;
+  3. the three kernels (rows, chain, wavefront), every variant, against
+     their plain PyTorch version on the card: int32 and float32, both
+     metrics, plain / span / last-row, variable query lengths, R not
+     dividing N, ``ref_lead``/``ref_len`` masks, carry chaining, block
+     policy invariance, N up to 1536, and N = 5000 on the chain kernel and
+     on the wavefront kernel in shared memory and in its global scratch —
+     int32 and integer-valued float32 bitwise, real-valued float32 within
+     ``rtol=1e-5``; then the ban (per-query column bans across slice
+     edges, at a negative offset, empty and total), every variant,
+     bitwise; then the chain kernel across several warps a query: every
+     variant with and without the ban, both types and metrics, ragged
+     lengths, N = 1, 33, 1,537, 4,000 and 8,192 (16 warps, its limit),
+     the carry across slices with bans across their edges;
   4. the main path at full size: ``matsa(mode="query_filtering")`` on the
      paper's Table V "Human" workload (131,072 int32 queries of length
      120 against 7,997 samples), checked against the numpy oracle on 8
@@ -28,18 +32,22 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      ``topk_fold_lastrow``) on all Human queries;
   6. a long reference: ``engine.sdtw(return_spans=True)`` at ECG's length
      (1,800,000 samples, queries of 512), 256 queries instead of 16,384;
-  7. long queries (N = 5000, past the rows kernel): ``matsa()``, spans and
-     top-K through the last row, on the wavefront kernel, against the
-     plain version;
-  8. every variant of both kernels timed with CUDA events at the Human
-     and ECG-cut shapes beside its bound, the plain version once per
+  7. long queries through ``kernel="auto"``: ``matsa()``, spans and top-K
+     through the last row at N = 5000 (the chain kernel) and N = 9000
+     (past the chain kernel's 8,192: the wavefront), against the plain
+     version;
+  8. every variant of the three kernels timed with CUDA events at the
+     Human and ECG-cut shapes beside its bound, the plain version once per
      variant and shape on one batch (16,384 Human or 32 ECG-cut queries,
      ``plain_queries`` in the JSON line); the rows kernel at Human with
-     ragged lengths (its generic harvest); both kernels, every variant,
-     at the other four Table V shapes cut to 4,224 queries (which is the
-     faster: ``kernel="auto"``'s routing), checked equal to each other;
-     the ban variants at ECG-cut with a self-join zone per query, both
-     kernels held equal on every query and to the plain version on 32;
+     ragged lengths (its generic harvest); the three kernels, every
+     variant, at the other four Table V shapes cut to 4,224 queries,
+     checked equal to each other; the ban variants at ECG-cut with a
+     self-join zone per query, the kernels held equal on every query and
+     to the plain version on 32; the chain policy: the chain kernel at
+     every R beside the policy's pick and the rows kernel, on self-join
+     batches of 256 windows of 512 and 2,048, 64 queries of 4,096 and
+     ECG-cut;
   9. pruned top-K search (``search_topk``, k = 3): all Human queries at
      full size, held on 64 queries against the exact search and the
      plain route (``engine_impl='rowscan'``); the ECG-cut batch, its top-1
@@ -53,28 +61,45 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      path valid and replaying its distance bitwise;
  12. the self-join at ECG's length: ``matsa(mode="self_join")`` with
      window and stride 512 (3,515 windows, the exact profile in batches
-     of 256, every launch the rows kernel's K3 with the ban); its first
+     of 256, every launch the chain kernel's K3 with the ban); its first
      batch (256 windows, 4 slices of 8,192 through the carry) held
      against the plain version slice by slice; 8 windows through the
      direct route (K1 and K2 with their bans) and their last rows held
      bitwise against the plain version over the whole series;
-     the profile again in one batch of 4,096, bitwise; a self-join of
-     1,600-sample windows on 100,000 samples (the wavefront kernel's
-     bans, 4 windows against the plain version);
+     the profile again in one batch of 4,096 (the rows kernel), bitwise;
+     the direct route of every window of 120 of Human's reference
+     (7,878 windows: the rows kernel's K1 and K2 bans); self-joins of
+     1,600-sample windows on 100,000 samples (the chain kernel's bans)
+     and of 9,000-sample windows on 40,000 (the wavefront's), 4 windows
+     each against the plain version;
  13. the pruned profile (``matrix_profile``, k = 3) of the level-shifted
      series of ECG's length: its distances against the exact profile;
  14. ``StreamProfile(512, stride=512, k=3)`` over 262,144 samples, fed in
      ragged pieces with a mid-stream flush, against
      ``matrix_profile(prune=False)`` of the same prefix;
+ 15. long windows and queries at ECG's length on the chain kernel:
+     ``matsa(mode="self_join", window=2048, stride=2048)`` (878 windows,
+     the exact profile in batches of 256, every launch the chain kernel's
+     K3 with the ban), its first batch through all 220 slices held
+     bitwise against the wavefront kernel, 4 windows against the plain
+     version over the whole series, motifs and discords against the
+     distances; ``engine.sdtw(return_spans=True)`` of 64 queries of
+     4,096 against the whole series on the chain kernel and on the
+     wavefront, timed, bitwise equal;
      then the JSON lines.
 
-Phases 4-6 and 9-14 run on the rows kernel (``kernel="auto"``), phase 7
-and the long self-join on the wavefront kernel; each path reads the
-launch counts set to 0 just before it (``launches_by_path`` in the JSON
-line).
+Every path runs on ``kernel="auto"``'s choice: the rows kernel for
+Human's 131,072 queries and every batch of at least 12 queries an SM
+(phases 4, 5, 9, 11, 12), the chain kernel for smaller batches of
+longer queries (ECG-cut's 256 in phases 6 and 9-11, the self-join's
+batches of 256 windows in 12-14) and past N = 1,536 (phases 7, 12, 15),
+the wavefront past 8,192 (phases 7, 12); each path reads the launch
+counts set to 0 just before it
+(``launches_by_path`` in the JSON line; ``launches`` sums them), and the
+script fails if a kernel variant was launched on no path.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel variant — with and without the ban — with its launches
-on its path, its largest difference from the plain version, its time,
+on the paths, its largest difference from the plain version, its time,
 the plain version's time and its bound.
 Phase 2 also logs each library's registers and spills (``-Xptxas -v``)
 and the static SASS instruction count of the main path's steady-state
@@ -124,7 +149,8 @@ def smi(query: str) -> str:
 
 #: Main-path instantiations whose steady-state loop phase 2 counts:
 #: (library, kernel name pattern in cuobjdump's listing, label, rows per
-#: loop iteration). Rows kernel: <T, TRACK, SQUARE, R, BAN>; wavefront:
+#: loop iteration). Rows and chain kernels: <T, TRACK, SQUARE, R, BAN>;
+#: wavefront:
 #: <T, TRACK, LASTROW, SQUARE, SCRATCH, BAN>, one row per thread per
 #: diagonal at Human and ECG (threads per query >= N). BAN is the
 #: per-query column ban; the self-join runs the rows kernel's K2/K3
@@ -141,6 +167,16 @@ SASS_LOOPS = (
      "rows K2 R=16 (ECG)", 16),
     ("sdtw_rows", r"sdtw_rows_kernelIiLb1ELb0ELi16ELb1EE",
      "rows K2/K3 R=16 with the ban (ECG self-join)", 16),
+    ("sdtw_chain", r"sdtw_chain_kernelIiLb0ELb0ELi4ELb0EE",
+     "chain K1 R=4 (ECG-cut)", 4),
+    ("sdtw_chain", r"sdtw_chain_kernelIiLb1ELb0ELi4ELb0EE",
+     "chain K2/K3 R=4 (ECG-cut)", 4),
+    ("sdtw_chain", r"sdtw_chain_kernelIiLb1ELb0ELi4ELb1EE",
+     "chain K2/K3 R=4 with the ban (self-join, window 512)", 4),
+    ("sdtw_chain", r"sdtw_chain_kernelIiLb1ELb0ELi8ELb0EE",
+     "chain K2 R=8 (4,096-sample spans)", 8),
+    ("sdtw_chain", r"sdtw_chain_kernelIiLb1ELb0ELi8ELb1EE",
+     "chain K2/K3 R=8 with the ban (self-join, window 2,048)", 8),
     ("sdtw", r"sdtw_wavefront_kernelIiLb0ELb0ELb0ELb0ELb0EE",
      "wavefront K1", 1),
     ("sdtw", r"sdtw_wavefront_kernelIiLb1ELb0ELb0ELb0ELb0EE",
@@ -210,6 +246,15 @@ def cuda_ms(fn, reps: int = 3, warmup: bool = True) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def reps_for(kernel: str, reps: int) -> dict:
+    """``cuda_ms`` arguments for a timing in phase 8: ``reps`` runs after a
+    warm-up, one run for the wavefront kernel (3-9× the others' time, its
+    instantiations launched in phase 3 already; its times vary by under
+    0.1 % between runs), which keeps the script within its time limit."""
+    return (dict(reps=1, warmup=False) if kernel == "wavefront"
+            else dict(reps=reps))
 
 
 class Harness:
@@ -298,13 +343,33 @@ class Harness:
                                      exact))
         return len(configs)
 
+    def check_modes(self, name, q, r, qlens=None, metric="abs_diff",
+                    modes=(), kernel="chain", **kw):
+        """Every (track, lastrow) variant of ``kernel`` against one run of
+        the plain version with the start lane and the last row, whose
+        outputs hold every variant's (integer-valued inputs: the values do
+        not depend on the start lane). Returns the number of
+        comparisons."""
+        want = self.plain_raw(q, r, qlens, metric, True, True, **kw)
+        ban = kw.get("excl_lo") is not None
+        for track, lastrow in modes:
+            got = self.kernel(q, r, qlens, metric, track, lastrow,
+                              kernel=kernel, **kw)
+            self.record(self.ops.variant(track, lastrow, kernel, ban),
+                        self.compare(
+                            f"{kernel} {name} track={track} "
+                            f"lastrow={lastrow}", got,
+                            [None if g is None else w
+                             for g, w in zip(got, want)]))
+        return len(modes)
+
     def record(self, var, worst):
         self.err[var] = max(self.err[var], worst)
 
 
 def phase_kernels(h, np, rng):
-    """Phase 3: every variant of both kernels against the plain version,
-    which runs once per input."""
+    """Phase 3: every variant of the three kernels against the plain
+    version, which runs once per input."""
     n_checks = 0
     shapes = [(3, 5, 17), (16, 120, 1000), (5, 200, 900), (4, 512, 3000)]
     modes = [(False, False), (True, False), (False, True), (True, True)]
@@ -337,14 +402,16 @@ def phase_kernels(h, np, rng):
                 f"R={rows} N={n} track={track} lastrow={lastrow}", q, r,
                 np.array([n, rows, n - 1, 0], np.int32), "abs_diff", track,
                 lastrow, configs=[("rows", {})])
-    # N = 5000 on the wavefront kernel: shared memory, then global scratch.
+    # N = 5000 on the wavefront kernel (shared memory, then global
+    # scratch) and on the chain kernel (10 warps of R = 16).
     q = rng.integers(-60, 60, (3, 5000)).astype(np.int32)
     r = rng.integers(-60, 60, 600).astype(np.int32)
     for track, lastrow in modes:
         n_checks += h.check(
             f"N=5000 track={track} lastrow={lastrow}", q, r,
             np.array([5000, 4321, 1], np.int32), "abs_diff", track, lastrow,
-            configs=[("wavefront", {}), ("wavefront", dict(block_q=2))])
+            configs=[("wavefront", {}), ("wavefront", dict(block_q=2)),
+                     ("chain", {})])
     q = rng.integers(-60, 60, (6, 40)).astype(np.int32)
     r = rng.integers(-60, 60, 900).astype(np.int32)
     for lead, rlen in ((0, 500), (13, 900), (30, 30), (0, 0), (100, 640)):
@@ -385,9 +452,74 @@ def phase_kernels(h, np, rng):
                            ("wavefront", dict(block_q=3, block_m=64)),
                            ("wavefront", dict(block_q=8, block_m=1024)),
                            ("rows", {}), ("rows", dict(block_q=1)),
-                           ("rows", dict(block_q=8))):
+                           ("rows", dict(block_q=8)), ("chain", {}),
+                           ("chain", dict(block_q=1)),
+                           ("chain", dict(block_q=9))):
         h.compare(f"{kernel} {launch}", h.kernel(
             q, r, track=True, kernel=kernel, **launch), base)
+        n_checks += 1
+    return n_checks
+
+
+def phase_chain(h, np, rng):
+    """Phase 3 (the chain kernel): queries across several warps of a block
+    against the plain version — every variant with and without the ban,
+    int32 and float32, both metrics, ragged lengths (last rows in every
+    warp, none at all), N not a multiple of 32·R, N = 1, 33 and 1,537,
+    4,000 (16 warps of R = 8) and CHAIN_MAX_N (16 warps of R = 16), and
+    the carry chained across slices with bans across their edges."""
+    n_checks = 0
+    modes = [(False, False), (True, False), (False, True), (True, True)]
+    for dtype, metric in ((np.int32, "abs_diff"), (np.int32, "square_diff"),
+                          (np.float32, "abs_diff"),
+                          (np.float32, "square_diff")):
+        b, n, m, off = 6, 600, 700, 300
+        q = rng.integers(-60, 60, (b, n)).astype(dtype)
+        r = rng.integers(-60, 60, m).astype(dtype)
+        qlens = np.array([n, n - 1, 129, 128, 1, 0], np.int32)
+        lo, hi = bans_for(np, rng, b, off, off + m)
+        for bans in ({}, dict(excl_lo=lo, excl_hi=hi)):
+            n_checks += h.check_modes(
+                f"{dtype.__name__} {metric} N={n} ban={bool(bans)}", q, r,
+                qlens, metric, modes, ref_offset=off, ref_lead=5,
+                ref_len=m - 7, **bans)
+    # The largest blocks check K1 and K3 with the start lane (every line
+    # of the sweep), without the ban at N = 4000 and with it at 8192.
+    for b, n, m, banned in ((3, 1, 200, None), (3, 33, 300, None),
+                            (3, 1537, 400, None), (2, 4000, 300, False),
+                            (2, h.ops.CHAIN_MAX_N, 200, True)):
+        q = rng.integers(-60, 60, (b, n)).astype(np.int32)
+        r = rng.integers(-60, 60, m).astype(np.int32)
+        qlens = np.array([n, max(1, n - 1), max(1, n // 3)][:b], np.int32)
+        lo, hi = bans_for(np, rng, b, 0, m)
+        for bans in ({}, dict(excl_lo=lo, excl_hi=hi)):
+            if banned is None or banned == bool(bans):
+                n_checks += h.check_modes(
+                    f"N={n} ban={bool(bans)}", q, r, qlens, "abs_diff",
+                    modes if banned is None else (modes[0], modes[3]),
+                    **bans)
+    # The carry across three slices with bans across their edges == one
+    # launch, at 1,700 rows (R = 4, 14 warps).
+    q = rng.integers(-60, 60, (7, 1700)).astype(np.int32)
+    r = rng.integers(-60, 60, 2000).astype(np.int32)
+    lo, hi = bans_for(np, rng, 7, 0, 2000)
+    for track in (False, True):
+        whole = h.kernel(q, r, track=track, kernel="chain", excl_lo=lo,
+                         excl_hi=hi)
+        carry = None
+        for off in range(0, 2000, 700):
+            sl = np.zeros(700, np.int32)
+            cl = min(700, 2000 - off)
+            sl[:cl] = r[off:off + cl]
+            _, carry = h.ops.sdtw_cuda(q, sl, carry=carry, ref_offset=off,
+                                       ref_len=cl, return_carry=True,
+                                       track_start=track, device=h.dev,
+                                       kernel="chain", excl_lo=lo,
+                                       excl_hi=hi)
+        chained = ((carry[2], carry[3], carry[4], carry[0], carry[1])
+                   if track else (carry[1], carry[2], None, carry[0], None))
+        h.compare(f"chain ban carry chaining track={track}", chained,
+                  whole[:5])
         n_checks += 1
     return n_checks
 
@@ -430,7 +562,8 @@ def phase_bans(h, np, rng):
     # lane (every line of the ban is in both).
     for n, m, configs in ((1536, 2500, None),
                           (5000, 600, [("wavefront", {}),
-                                       ("wavefront", dict(block_q=2))])):
+                                       ("wavefront", dict(block_q=2)),
+                                       ("chain", {})])):
         q = rng.integers(-60, 60, (3, n)).astype(np.int32)
         r = rng.integers(-60, 60, m).astype(np.int32)
         lo, hi = bans_for(np, rng, 3, 0, m)
@@ -602,7 +735,7 @@ def phase_search(torch, np, ops, kpkg, human, ecg, ls8, dev):
     wall = time.time() - t0
     kernel_ms = timer.ms()
     launches["search_ecg"] = dict(ops.LAUNCHES)
-    if launches["search_ecg"]["rows_lastrow"] < 1:
+    if launches["search_ecg"]["chain_lastrow"] < 1:
         raise AssertionError(f"ECG search missed the kernel: "
                              f"{launches['search_ecg']}")
     if not torch.equal(res.distances[:, 0], de):
@@ -657,7 +790,7 @@ def phase_stream(torch, np, ops, kpkg, ecg, ls8, dev):
         torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(ops.LAUNCHES)
-    if s.impl != "pallas" or launches["rows_lastrow"] < 1:
+    if s.impl != "pallas" or launches["chain_lastrow"] < 1:
         raise AssertionError(f"stream missed the kernel: {launches}")
     for f, want in (("distances", de), ("starts", se), ("positions", ee)):
         if not np.array_equal(getattr(res, f)[:, 0], want.cpu().numpy()):
@@ -757,6 +890,12 @@ def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
     from repro_torch.search import matrix_profile
     w = 512
     st = torch.as_tensor(series, device=dev)
+    # "auto" at 256 windows (a batch) and at 8: the chain kernel, whose
+    # 4 warps a window fill the card where one warp does not.
+    kern = ops.choose_kernel(w, "auto", 256, ops.sm_count(0))
+    if kern != ops.choose_kernel(w, "auto", 8, ops.sm_count(0)):
+        raise AssertionError("a batch of 256 and one of 8 windows of 512 "
+                             "run on different kernels")
     launches = {}
     ops.reset_launches()
     t0 = time.time()
@@ -768,8 +907,9 @@ def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
     prof = res.profile
     nw = len(prof.starts)
     want = -(-nw // 256) * -(-len(series) // prof.chunk)
-    launches["self_join_ecg"] = _only(ops, "rows_lastrow_ban", "self-join")
-    if launches["self_join_ecg"]["rows_lastrow_ban"] != want:
+    launches["self_join_ecg"] = _only(ops, f"{kern}_lastrow_ban",
+                                      "self-join")
+    if launches["self_join_ecg"][f"{kern}_lastrow_ban"] != want:
         raise AssertionError(f"self-join: {want} launches expected")
     d = res.distances
     if d.shape != (nw,) or d.dtype != torch.int32 or d.device != st.device:
@@ -794,7 +934,7 @@ def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
                    excl_lo=lob, excl_hi=hib)
         got = h.kernel(qb, st[off:off + c], carry=kc, **kw_)
         ref = h.plain_raw(qb, st[off:off + c], carry=pc, **kw_)
-        h.record("rows_lastrow_ban", h.compare(
+        h.record(f"{kern}_lastrow_ban", h.compare(
             f"self-join batch of {nb}, slice at {off}", got, ref))
         kc = (got[3], got[4], got[0], got[1], got[2])
         pc = (ref[3], ref[4], ref[0], ref[1], ref[2])
@@ -809,7 +949,8 @@ def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
         f"{kernel_ms:.3f} ms ({kernel_ms / 1e3 / wall:.1%}), "
         f"{cells:.4g} cells ({cells / wall:.4g} cells/s, int32 bound "
         f"{bound_s:.3f} s), launches "
-        f"{launches['self_join_ecg']['rows_lastrow_ban']} (chunk "
+        f"{launches['self_join_ecg'][f'{kern}_lastrow_ban']} {kern} K3 "
+        f"(chunk "
         f"{prof.chunk}); motifs {prof.motifs}, discords {prof.discords}")
 
     # 8 windows through the direct route, against the plain version with
@@ -825,58 +966,149 @@ def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
                            return_positions=True, device=dev)
     torch.cuda.synchronize()
     launches["self_join_windows_ecg"] = dict(ops.LAUNCHES)
-    if (launches["self_join_windows_ecg"]["rows_span_ban"] != 1
-            or launches["self_join_windows_ecg"]["rows_plain_ban"] != 1):
+    if (launches["self_join_windows_ecg"][f"{kern}_span_ban"] != 1
+            or launches["self_join_windows_ecg"][f"{kern}_plain_ban"] != 1):
         raise AssertionError(f"direct route missed the kernel: "
                              f"{launches['self_join_windows_ecg']}")
     raw_k = h.kernel(q8, st, track=True, lastrow=True, excl_lo=lo8,
                      excl_hi=hi8)
     raw_p = h.plain_raw(q8, st, track=True, lastrow=True, excl_lo=lo8,
                         excl_hi=hi8)
-    h.record("rows_span_ban", h.compare(
+    h.record(f"{kern}_span_ban", h.compare(
         "8 self-join windows spans vs plain", (d8, e8, st8), raw_p[:3]))
-    h.record("rows_plain_ban", h.compare(
+    h.record(f"{kern}_plain_ban", h.compare(
         "8 self-join windows distances vs plain", (dp8, ep8), raw_p[:2]))
-    h.record("rows_lastrow_ban", h.compare(
+    h.record(f"{kern}_lastrow_ban", h.compare(
         "8 self-join windows last row vs plain", raw_k, raw_p))
     for f, got in (("nn_dist", d8), ("nn_start", st8), ("nn_end", e8)):
         if not np.array_equal(getattr(prof, f)[idx], got.cpu().numpy()):
             raise AssertionError(f"self-join {f} != the direct route")
     del raw_k, raw_p
 
+    ops.reset_launches()
     t0 = time.time()
     with KernelTimer(torch, kpkg) as timer:
         whole = matrix_profile(series, w, stride=w, k=3, prune=False,
                                batch=4096, device=dev)
     wall_4096 = time.time() - t0
+    launches["self_join_ecg_4096"] = _only(ops, "rows_lastrow_ban",
+                                           "self-join batch 4096")
     _same_profile("batch 4096 vs 256", whole, prof,
                   ("starts", "nn_dist", "nn_start", "nn_end", "nn_window"))
     log(f"phase 12: 8 windows (direct route, K1 and K2 with bans) and their"
         f" last rows == plain version over the whole series, == the "
-        f"profile; batch 4096 (one launch a chunk): {wall_4096:.3f} s wall, "
+        f"profile; batch 4096 (one rows-kernel launch a chunk): "
+        f"{wall_4096:.3f} s wall, "
         f"kernel {timer.ms():.3f} ms, bitwise batch 256; k=3: motifs "
         f"{whole.motifs}, discords {whole.discords}")
     return launches, {"wall_s": wall, "kernel_ms": kernel_ms,
                       "wall_4096_s": wall_4096, "windows": nw}
 
 
-def phase_self_join_long(torch, np, ops, h, series, dev):
-    """Phase 12 (long windows): a self-join of 1,600-sample windows, past
-    the rows kernel: the wavefront kernel's ban variants against the plain
-    version. Returns its launches by path."""
+def phase_self_join_direct(torch, np, ops, h, series, w, dev):
+    """Phase 12 (a full batch through the direct route): every window of
+    ``w`` samples of ``series`` at stride 1 against the series, through
+    ``engine.sdtw`` with the self-join bans — distances (K1) and spans
+    (K2) on the rows kernel's ban instantiations, a batch that fills the
+    card with one warp a window — held against the plain version on 64
+    windows. Returns its launches by path."""
+    from repro_torch.core import engine
+    from repro_torch.core.sdtw import self_join_exclusion
+    s = np.arange(len(series) - w + 1)
+    st = torch.as_tensor(series, device=dev)
+    q = torch.as_tensor(series[s[:, None] + np.arange(w)], device=dev)
+    lo, hi = self_join_exclusion(s, w)
+    ops.reset_launches()
+    d, e = engine.sdtw(q, st, excl_lo=lo, excl_hi=hi, return_positions=True,
+                       device=dev)
+    launches = {"self_join_direct_human": _only(
+        ops, "rows_plain_ban", "Human self-join distances")}
+    ops.reset_launches()
+    d2, s2, e2 = engine.sdtw(q, st, excl_lo=lo, excl_hi=hi,
+                             return_spans=True, device=dev)
+    launches["self_join_direct_human_spans"] = _only(
+        ops, "rows_span_ban", "Human self-join spans")
+    if not (torch.equal(d, d2) and torch.equal(e, e2)):
+        raise AssertionError("Human self-join: K1 and K2 disagree")
+    sub = np.linspace(0, len(s) - 1, 64).astype(np.int64)
+    want = h.plain_raw(q[sub], st, track=True, excl_lo=lo[sub],
+                       excl_hi=hi[sub])
+    h.record("rows_span_ban", h.compare("Human self-join 64 windows spans",
+                                        (d2[sub], e2[sub], s2[sub]),
+                                        want[:3]))
+    h.record("rows_plain_ban", h.compare(
+        "Human self-join 64 windows distances", (d[sub], e[sub]), want[:2]))
+    log(f"phase 12: direct self-join of {len(s)} windows of {w} (stride 1) "
+        f"on {len(series)} samples: K1 and K2 with bans on the rows kernel, "
+        f"equal; 64 windows == plain version")
+    return launches
+
+
+def chain_sweep(torch, np, ops, series, ecg, sms, dev):
+    """Phase 8 (the chain policy): the chain kernel at every R it is built
+    for (forced by replacing ``ops.resolve_chain`` for the call) beside
+    the policy's own pick and, where it takes the query, the rows kernel:
+    one self-join batch of 256 windows of 512 and of 2,048 (the first
+    8,192 columns, K3 with the bans), 64 queries of 4,096 (262,144
+    columns, K2) and ECG-cut K3. Returns ``{case: {config: ms}}``."""
+    from repro_torch.core.sdtw import self_join_exclusion
+    st = torch.as_tensor(series, device=dev)
+    cases = {}
+    for w in (512, 2048):
+        s_b = np.arange(256) * w
+        qb = torch.as_tensor(series[s_b[:, None] + np.arange(w)], device=dev)
+        lo, hi = (x.to(dev) for x in self_join_exclusion(s_b, w))
+        cases[f"self-join batch of 256 windows of {w}, K3 with bans"] = (
+            qb, st[:8192], dict(return_spans=True, return_lastrow=True,
+                                excl_lo=lo, excl_hi=hi))
+    s64 = np.linspace(0, len(series) - 4096, 64).astype(np.int64)
+    cases["64 queries of 4,096 against 262,144, K2"] = (
+        torch.as_tensor(series[s64[:, None] + np.arange(4096)], device=dev),
+        st[:262_144], dict(return_spans=True))
+    cases["ECG-cut, K3"] = ecg + (dict(return_spans=True,
+                                       return_lastrow=True),)
+    real, out = ops.resolve_chain, {}
+    for name, (qq, rr, kw) in cases.items():
+        b, n = qq.shape
+        ms = {}
+        for rows in ops.CHAIN_ROWS:
+            warps = -(-n // (32 * rows))
+            if warps > ops.CHAIN_MAX_WARPS:
+                continue
+            ops.resolve_chain = lambda *a, w=warps, r=rows, **k: (w, r, 1)
+            try:
+                ms[f"chain R={rows} W={warps}"] = cuda_ms(
+                    lambda: ops.sdtw_cuda(qq, rr, device=dev, kernel="chain",
+                                          **kw), reps=2)
+            finally:
+                ops.resolve_chain = real
+        if n <= ops.ROWS_MAX_N:
+            ms["rows"] = cuda_ms(lambda: ops.sdtw_cuda(
+                qq, rr, device=dev, kernel="rows", **kw), reps=2)
+        out[name] = ms
+        log(f"chain policy: {name} ({b}x{n} vs {rr.shape[0]}): pick (W, R, "
+            f"queries a block) {real(b, n, sms=sms)}; "
+            + ", ".join(f"{c} {t:.3f} ms" for c, t in ms.items()))
+    return out
+
+
+def phase_self_join_long(torch, np, ops, h, series, w, kernel, dev):
+    """Phase 12 (long windows): a self-join of ``w``-sample windows, past
+    the rows kernel, through ``kernel`` (``"auto"``'s choice at ``w``):
+    its ban variants against the plain version. Returns its launches by
+    path."""
     from repro_torch.core import engine
     from repro_torch.core.matsa_api import matsa
     from repro_torch.core.sdtw import self_join_exclusion
-    w = 1600
     st = torch.as_tensor(series, device=dev)
     launches = {}
+    path = f"self_join_{w}"
     ops.reset_launches()
     with NoRowScan("long self-join"):
         res = matsa(series, mode="self_join", window=w, stride=w,
                     device=dev)
         torch.cuda.synchronize()
-    launches["self_join_long"] = _only(ops, "wavefront_lastrow_ban",
-                                       "long self-join")
+    launches[path] = _only(ops, f"{kernel}_lastrow_ban", f"self-join {w}")
     prof = res.profile
     idx = np.unique(np.linspace(0, len(prof.starts) - 1, 4).astype(int))
     s4 = prof.starts[idx]
@@ -888,29 +1120,187 @@ def phase_self_join_long(torch, np, ops, h, series, dev):
     dp4, ep4 = engine.sdtw(q4, st, excl_lo=lo4, excl_hi=hi4,
                            return_positions=True, device=dev)
     torch.cuda.synchronize()
-    launches["self_join_long_windows"] = dict(ops.LAUNCHES)
+    launches[path + "_windows"] = la = dict(ops.LAUNCHES)
+    if (la[f"{kernel}_span_ban"] != 1 or la[f"{kernel}_plain_ban"] != 1
+            or sum(la.values()) != 2):
+        raise AssertionError(f"long windows missed the {kernel} kernel: "
+                             f"{la}")
     raw_k = h.kernel(q4, st, track=True, lastrow=True, excl_lo=lo4,
-                     excl_hi=hi4)
+                     excl_hi=hi4, kernel=kernel)
     raw_p = h.plain_raw(q4, st, track=True, lastrow=True, excl_lo=lo4,
                         excl_hi=hi4)
-    h.record("wavefront_span_ban", h.compare(
-        "4 long windows spans vs plain", (d4, e4, st4), raw_p[:3]))
-    h.record("wavefront_plain_ban", h.compare(
-        "4 long windows distances vs plain", (dp4, ep4), raw_p[:2]))
-    h.record("wavefront_lastrow_ban", h.compare(
-        "4 long windows last row vs plain", raw_k, raw_p))
+    h.record(f"{kernel}_span_ban", h.compare(
+        f"4 windows of {w} spans vs plain", (d4, e4, st4), raw_p[:3]))
+    h.record(f"{kernel}_plain_ban", h.compare(
+        f"4 windows of {w} distances vs plain", (dp4, ep4), raw_p[:2]))
+    h.record(f"{kernel}_lastrow_ban", h.compare(
+        f"4 windows of {w} last row vs plain", raw_k, raw_p))
     for f, got in (("nn_dist", d4), ("nn_start", st4), ("nn_end", e4)):
         if not np.array_equal(getattr(prof, f)[idx], got.cpu().numpy()):
-            raise AssertionError(f"long self-join {f} != the direct route")
-    la = launches["self_join_long_windows"]
-    if la["wavefront_span_ban"] != 1 or la["wavefront_plain_ban"] != 1:
-        raise AssertionError(f"long windows missed the wavefront: {la}")
+            raise AssertionError(f"self-join {w}: {f} != the direct route")
     log(f"phase 12: self-join of {len(prof.starts)} windows of {w} on "
-        f"{len(series)} samples on the wavefront kernel "
-        f"({launches['self_join_long']['wavefront_lastrow_ban']} launches "
-        f"with the ban); 4 windows (K1, K2, K3 with bans) == plain version "
-        f"and == the profile")
+        f"{len(series)} samples on the {kernel} kernel "
+        f"({launches[path][f'{kernel}_lastrow_ban']} launches with the "
+        f"ban); 4 windows (K1, K2, K3 with bans) == plain version and == "
+        f"the profile")
     return launches
+
+
+def phase_long_windows(torch, np, ops, kpkg, h, series, int32_rate, dev):
+    """Phase 15: the chain kernel's full-width paths at ECG's length.
+    ``matsa(mode="self_join", window=2048, stride=2048)`` (the exact
+    profile in the default batches of 256, every launch the chain
+    kernel's K3 with the ban), its first batch through all slices against
+    the wavefront kernel, 4 of its windows against the plain version over
+    the whole series, its motifs and discords against its distances; then
+    ``engine.sdtw(return_spans=True)`` of 64 queries of 4,096 against the
+    whole series on both long-query kernels, timed and held bitwise.
+    Returns the launches by path and the timings."""
+    from repro_torch.core import engine
+    from repro_torch.core.matsa_api import matsa
+    from repro_torch.core.sdtw import self_join_exclusion
+    w, m = 2048, len(series)
+    st = torch.as_tensor(series, device=dev)
+    launches, out = {}, {}
+    ops.reset_launches()
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as timer, NoRowScan("self-join 2048"):
+        res = matsa(series, mode="self_join", window=w, stride=w, device=dev)
+        torch.cuda.synchronize()
+    out["self_join_s"] = wall = time.time() - t0
+    out["self_join_kernel_ms"] = kernel_ms = timer.ms()
+    prof = res.profile
+    nw = len(prof.starts)
+    launches["self_join_2048_ecg"] = _only(ops, "chain_lastrow_ban",
+                                           "self-join 2048")
+    n_launch = launches["self_join_2048_ecg"]["chain_lastrow_ban"]
+    if n_launch != -(-nw // 256) * -(-m // prof.chunk):
+        raise AssertionError(f"self-join 2048: {n_launch} launches")
+    d = res.distances
+    if (d.shape != (nw,) or d.dtype != torch.int32 or d.device != st.device
+            or not prof.valid.all() or not (prof.nn_dist < 2**29).all()):
+        raise AssertionError("self-join 2048: unexpected profile")
+    # Motifs are mutual nearest neighbours at the cheaper of their two
+    # distances; discords the farthest windows, farthest first.
+    for a, b_, dist in prof.motifs:
+        if not (prof.nn_window[a] == b_ and prof.nn_window[b_] == a
+                and dist == min(prof.nn_dist[a], prof.nn_dist[b_])):
+            raise AssertionError(f"motif ({a}, {b_}) != the profile")
+    dd = [dist for _, dist in prof.discords]
+    if (not prof.discords or dd != sorted(dd, reverse=True)
+            or dd[0] != prof.nn_dist.max()
+            or any(prof.nn_dist[i] != dist for i, dist in prof.discords)):
+        raise AssertionError("discords != the profile's farthest windows")
+    cells = nw * w * m
+    log(f"phase 15: matsa(self_join) window {w} stride {w} on {m} samples: "
+        f"{nw} windows, {wall:.3f} s wall, kernel {kernel_ms:.3f} ms "
+        f"({kernel_ms / 1e3 / wall:.1%}), {cells:.4g} cells "
+        f"({cells / wall:.4g} cells/s, int32 bound "
+        f"{cells * OPS_PER_CELL['span'] / int32_rate:.3f} s), {n_launch} "
+        f"launches (chunk {prof.chunk}, batch 256, "
+        f"{ops.resolve_chain(256, w, sms=ops.sm_count(0))} (W, R, queries "
+        f"a block)); motifs {prof.motifs}, discords {prof.discords}")
+
+    # The first batch as the path launches it (``_kernel_topk_scan``: the
+    # reference right-padded to whole chunks, the carry through them), on
+    # the chain kernel and on the wavefront, every output of every slice
+    # bitwise; the batch's harvest equals the profile.
+    c, nb = prof.chunk, min(256, nw)
+    s_b = prof.starts[:nb]
+    qb = torch.as_tensor(series[s_b[:, None] + np.arange(w)], device=dev)
+    lob, hib = (x.to(dev) for x in self_join_exclusion(s_b, w))
+    r_pad = torch.nn.functional.pad(st, (0, -(-m // c) * c - m))
+    carry = {"chain": None, "wavefront": None}
+    ms = {"chain": 0.0, "wavefront": 0.0}
+    for off in range(0, m, c):
+        got = {}
+        for kernel in carry:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            ev[0].record()
+            got[kernel] = h.kernel(qb, r_pad[off:off + c], carry=carry[kernel],
+                                   track=True, lastrow=True, ref_offset=off,
+                                   ref_len=min(c, m - off), excl_lo=lob,
+                                   excl_hi=hib, kernel=kernel)
+            ev[1].record()
+            ev[1].synchronize()
+            ms[kernel] += ev[0].elapsed_time(ev[1])
+            g = got[kernel]
+            carry[kernel] = (g[3], g[4], g[0], g[1], g[2])
+        h.record("chain_lastrow_ban", h.compare(
+            f"self-join 2048 batch, slice at {off}: chain vs wavefront",
+            got["chain"], got["wavefront"]))
+    if not np.array_equal(carry["chain"][2].cpu().numpy(), prof.nn_dist[:nb]):
+        raise AssertionError("self-join 2048: batch harvest != profile")
+    out["batch_ms"] = ms
+    log(f"phase 15: first batch ({nb} windows, {-(-m // c)} slices of {c} "
+        f"through the carry): chain {ms['chain']:.3f} ms, wavefront "
+        f"{ms['wavefront']:.3f} ms, every output of every slice bitwise "
+        f"equal; harvest == profile")
+    del got, carry
+
+    # 4 windows through the direct route, against the plain version with
+    # their bans over the whole series.
+    idx = np.unique(np.linspace(0, nw - 1, 4).astype(int))
+    s4 = prof.starts[idx]
+    q4 = torch.as_tensor(series[s4[:, None] + np.arange(w)], device=dev)
+    lo4, hi4 = self_join_exclusion(s4, w)
+    ops.reset_launches()
+    d4, st4, e4 = engine.sdtw(q4, st, excl_lo=lo4, excl_hi=hi4,
+                              return_spans=True, device=dev)
+    dp4, ep4 = engine.sdtw(q4, st, excl_lo=lo4, excl_hi=hi4,
+                           return_positions=True, device=dev)
+    torch.cuda.synchronize()
+    launches["self_join_2048_windows"] = la = dict(ops.LAUNCHES)
+    if la["chain_span_ban"] != 1 or la["chain_plain_ban"] != 1:
+        raise AssertionError(f"window 2048 direct route: {la}")
+    t0 = time.time()
+    raw_p = h.plain_raw(q4, st, track=True, lastrow=True, excl_lo=lo4,
+                        excl_hi=hi4)
+    raw_k = h.kernel(q4, st, track=True, lastrow=True, excl_lo=lo4,
+                     excl_hi=hi4, kernel="chain")
+    h.record("chain_span_ban", h.compare(
+        "4 windows of 2048 spans vs plain", (d4, e4, st4), raw_p[:3]))
+    h.record("chain_plain_ban", h.compare(
+        "4 windows of 2048 distances vs plain", (dp4, ep4), raw_p[:2]))
+    h.record("chain_lastrow_ban", h.compare(
+        "4 windows of 2048 last row vs plain", raw_k, raw_p))
+    for f, got in (("nn_dist", d4), ("nn_start", st4), ("nn_end", e4)):
+        if not np.array_equal(getattr(prof, f)[idx], got.cpu().numpy()):
+            raise AssertionError(f"self-join 2048: {f} != the direct route")
+    log(f"phase 15: 4 windows (K1, K2, K3 with bans) == plain version over "
+        f"the whole series ({time.time() - t0:.1f} s) and == the profile")
+    del raw_p, raw_k
+
+    # 64 queries of 4,096 cut from the series (noised), spans against the
+    # whole series: the path ("auto", the chain kernel), then both kernels
+    # timed; every query's outputs bitwise equal.
+    rng = np.random.default_rng(4096)
+    s64 = rng.choice(m - 4096, 64, replace=False)
+    q64 = torch.as_tensor(series[s64[:, None] + np.arange(4096)]
+                          + rng.integers(-3, 4, (64, 4096)).astype(np.int32),
+                          device=dev)
+    ops.reset_launches()
+    spans = engine.sdtw(q64, st, return_spans=True, device=dev)
+    torch.cuda.synchronize()
+    launches["spans_4096_ecg"] = _only(ops, "chain_span", "4,096 spans")
+    wf = []
+    out["spans_ms"] = {
+        "chain": cuda_ms(lambda: engine.sdtw(q64, st, return_spans=True,
+                                             device=dev), reps=2,
+                         warmup=False),
+        "wavefront": cuda_ms(lambda: wf.append(ops.sdtw_cuda(
+            q64, st, return_spans=True, device=dev, kernel="wavefront")),
+            reps=1, warmup=False)}
+    h.compare("4,096 spans: chain vs wavefront", spans, wf[0])
+    cells = 64 * 4096 * m
+    out["spans_bound_ms"] = cells * OPS_PER_CELL["span"] / int32_rate * 1e3
+    log(f"phase 15: engine.sdtw(spans) 64 queries of 4096 vs {m}: "
+        f"{cells:.4g} cells; chain {out['spans_ms']['chain']:.3f} ms, "
+        f"wavefront {out['spans_ms']['wavefront']:.3f} ms, K2 bound "
+        f"{out['spans_bound_ms']:.3f} ms; chain "
+        f"{ops.resolve_chain(64, 4096, sms=ops.sm_count(0))}; bitwise "
+        f"equal on every query")
+    return launches, out
 
 
 def phase_profile_pruned(torch, np, ops, kpkg, ls_ref, dev):
@@ -923,7 +1313,7 @@ def phase_profile_pruned(torch, np, ops, kpkg, ls_ref, dev):
     with KernelTimer(torch, kpkg) as timer, NoRowScan("pruned profile"):
         pr = matrix_profile(ls_ref, 512, stride=512, k=3, device=dev)
     wall = time.time() - t0
-    launches = _only(ops, "rows_lastrow_ban", "pruned profile")
+    launches = _only(ops, "chain_lastrow_ban", "pruned profile")
     t0 = time.time()
     exact = matrix_profile(ls_ref, 512, stride=512, k=3, prune=False,
                            batch=4096, device=dev)
@@ -939,7 +1329,7 @@ def phase_profile_pruned(torch, np, ops, kpkg, ls_ref, dev):
         f"{timer.ms():.3f} ms ({timer.ms() / 1e3 / wall:.1%}), chunks "
         f"total {pr.chunks_total} pruned {pr.chunks_pruned} (kim "
         f"{pr.chunks_pruned_kim}, keogh {pr.chunks_pruned_keogh}) processed "
-        f"{pr.chunks_processed}, launches {launches['rows_lastrow_ban']}; "
+        f"{pr.chunks_processed}, launches {launches['chain_lastrow_ban']}; "
         f"distances == exact profile ({wall_exact:.3f} s, batch 4096; "
         f"spans equal on {spans}/{len(pr.starts)}); motifs {pr.motifs}, "
         f"discords {pr.discords}")
@@ -964,7 +1354,7 @@ def phase_stream_profile(torch, np, ops, kpkg, series, dev):
                 sp.flush()
         res = sp.results()
     wall = time.time() - t0
-    launches = _only(ops, "rows_lastrow_ban", "stream profile")
+    launches = _only(ops, "chain_lastrow_ban", "stream profile")
     want = matrix_profile(pre, 512, stride=512, k=3, prune=False,
                           device=dev)
     _same_profile("stream profile vs matrix_profile", res, want)
@@ -972,7 +1362,7 @@ def phase_stream_profile(torch, np, ops, kpkg, series, dev):
         f"samples in {len(cuts) - 1} pieces, flush after piece 3: "
         f"{wall:.3f} s wall, kernel {timer.ms():.3f} ms "
         f"({timer.ms() / 1e3 / wall:.1%}), {sp.tiles_processed} tiles, "
-        f"{len(res.starts)} windows, launches {launches['rows_lastrow_ban']}"
+        f"{len(res.starts)} windows, launches {launches['chain_lastrow_ban']}"
         f"; == matrix_profile(prune=False) bitwise")
     return launches
 
@@ -1004,7 +1394,7 @@ def phase_align(torch, np, ops, kpkg, human, ecg, dev):
                                      f"distance")
             n_paths += 1
     launches = dict(ops.LAUNCHES)
-    if launches["rows_span"] < 2:
+    if launches["rows_span"] < 1 or launches["chain_span"] < 1:
         raise AssertionError(f"align missed the kernel: {launches}")
     log(f"phase 11: align {times}: {n_paths} paths valid, each replaying "
         f"its distance bitwise; launches {launches}")
@@ -1082,7 +1472,8 @@ def main() -> int:
             f"registers")
     for k, (reg, st, ld) in sorted(ptxas.items()):
         if st or ld:
-            short = re.search(r"sdtw_(rows|wavefront)_kernel\w+?EE", k)
+            short = re.search(r"sdtw_(rows|chain|wavefront)_kernel\w+?EE",
+                              k)
             log(f"  ptxas spill: {short.group(0) if short else k}: {reg} "
                 f"registers, {st} bytes spill stores, {ld} bytes spill "
                 f"loads")
@@ -1117,6 +1508,11 @@ def main() -> int:
     n_checks = phase_bans(h, np, rng)
     log(f"phase 3: {n_checks} kernel-vs-plain checks with per-query column "
         f"bans passed in {time.time() - t0:.1f} s (bitwise)")
+    t0 = time.time()
+    n_checks = phase_chain(h, np, rng)
+    log(f"phase 3: {n_checks} chain-kernel-vs-plain checks (several warps a "
+        f"query) passed in {time.time() - t0:.1f} s (int32 and "
+        f"integer-valued float32 bitwise)")
 
     # Phase 4: the main path at full size — Table V "Human".
     hw = load_real_workload_shapes()["Human"]
@@ -1203,10 +1599,10 @@ def main() -> int:
     de, se, ee = engine.sdtw(qe, re_, return_spans=True)
     torch.cuda.synchronize()
     ecg_launches = dict(ops.LAUNCHES)
-    if ecg_launches["rows_span"] < 1:
+    if ecg_launches["chain_span"] < 1:
         raise AssertionError(f"ECG path missed the kernel: {ecg_launches}")
     raw_p = h.plain_raw(qe[:4], re_, track=True)
-    h.record("rows_span", h.compare("ECG 4 queries vs plain",
+    h.record("chain_span", h.compare("ECG 4 queries vs plain",
                                     (de[:4], ee[:4], se[:4]), raw_p[:3]))
     if not bool(((de >= 0) & (de < 2**29)).all()):
         raise AssertionError("ECG distances outside [0, INT_BIG)")
@@ -1214,50 +1610,51 @@ def main() -> int:
     log(f"phase 6: engine.sdtw(spans) {ecg_ms:.3f} ms end to end, launches "
         f"{ecg_launches}; plain version agrees on 4 queries")
 
-    # Phase 7: long queries, past the rows kernel — the wavefront kernel.
-    nl, ml, bl = 5000, 4000, 8
-    ref_l = synthetic_timeseries(rng, ml)
-    q_l = synthetic_timeseries(rng, bl * nl).reshape(bl, nl)
-    ql, rl = (torch.as_tensor(q_l, device=dev),
-              torch.as_tensor(ref_l, device=dev))
+    # Phase 7: long queries, past the rows kernel, through "auto": N = 5000
+    # on the chain kernel, N = 9000 (past CHAIN_MAX_N) on the wavefront.
+    # One plain run (start lane and last row) holds all three variants.
     long_launches = {}
-    ops.reset_launches()
-    dl = matsa(ref_l, q_l).distances
-    torch.cuda.synchronize()
-    long_launches["wavefront_plain"] = ops.LAUNCHES["wavefront_plain"]
-    h.record("wavefront_plain", h.compare(
-        f"long queries N={nl} matsa vs plain", (dl,),
-        h.plain_raw(ql, rl)[:1]))
-    ops.reset_launches()
-    dls, sls, els = engine.sdtw(ql, rl, return_spans=True)
-    torch.cuda.synchronize()
-    long_launches["wavefront_span"] = ops.LAUNCHES["wavefront_span"]
-    h.record("wavefront_span", h.compare(
-        f"long queries N={nl} spans vs plain", (dls, els, sls),
-        h.plain_raw(ql, rl, track=True)[:3]))
-    ops.reset_launches()
-    _, lrow, lstart = ops.sdtw_cuda(ql, rl, return_spans=True,
-                                    return_lastrow=True, device=dev)
-    heap = topk_fold_lastrow(topk_init(bl, k, torch.int32, dev), lrow, lstart,
-                             0, k, default_excl_zone(torch.full(
-                                 (bl,), nl, dtype=torch.int32, device=dev)))
-    torch.cuda.synchronize()
-    long_launches["wavefront_lastrow"] = ops.LAUNCHES["wavefront_lastrow"]
-    raw_p = h.plain_raw(ql, rl, track=True, lastrow=True)
-    h.record("wavefront_lastrow", h.compare(
-        f"long queries N={nl} last row vs plain", (lrow, lstart), raw_p[5:]))
-    if min(long_launches.values()) < 1 or any(
-            v for key, v in ops.LAUNCHES.items() if key.startswith("rows")):
-        raise AssertionError(f"long queries missed the wavefront kernel: "
-                             f"{long_launches}")
-    del heap, lrow, lstart
-    log(f"phase 7: N={nl}, {bl} queries against {ml}: matsa, spans and "
-        f"top-{k} via the last row on the wavefront kernel == plain; "
-        f"launches {long_launches}")
+    for kern, nl, ml, bl in (("chain", 5000, 4000, 8),
+                             ("wavefront", 9000, 3000, 4)):
+        ref_l = synthetic_timeseries(rng, ml)
+        q_l = synthetic_timeseries(rng, bl * nl).reshape(bl, nl)
+        ql, rl = (torch.as_tensor(q_l, device=dev),
+                  torch.as_tensor(ref_l, device=dev))
+        got = {}
 
-    # Phase 8: every variant of both kernels at both shapes; the plain
-    # version once per variant and shape (both kernels share it), on one
-    # batch of the queries (its time grows with the batch).
+        def counted(var):
+            torch.cuda.synchronize()
+            key = f"{kern}_{var}"
+            long_launches[key] = _only(ops, key, f"N={nl} {var}")[key]
+        ops.reset_launches()
+        got["plain"] = (matsa(ref_l, q_l).distances,)
+        counted("plain")
+        ops.reset_launches()
+        dls, sls, els = engine.sdtw(ql, rl, return_spans=True)
+        got["span"] = (dls, els, sls)
+        counted("span")
+        ops.reset_launches()
+        _, lrow, lstart = ops.sdtw_cuda(ql, rl, return_spans=True,
+                                        return_lastrow=True, device=dev)
+        heap = topk_fold_lastrow(topk_init(bl, k, torch.int32, dev), lrow,
+                                 lstart, 0, k, default_excl_zone(torch.full(
+                                     (bl,), nl, dtype=torch.int32,
+                                     device=dev)))
+        counted("lastrow")
+        got["lastrow"] = (lrow, lstart)
+        raw_p = h.plain_raw(ql, rl, track=True, lastrow=True)
+        for var, want in (("plain", raw_p[:1]), ("span", raw_p[:3]),
+                          ("lastrow", raw_p[5:])):
+            h.record(f"{kern}_{var}", h.compare(
+                f"long queries N={nl} {var} vs plain", got[var], want))
+        del heap, lrow, lstart, got, raw_p
+        log(f"phase 7: N={nl}, {bl} queries against {ml}: matsa, spans and "
+            f"top-{k} via the last row on the {kern} kernel == plain")
+    log(f"phase 7: launches {long_launches}")
+
+    # Phase 8: every variant of the three kernels at both shapes; the
+    # plain version once per variant and shape (the kernels share it), on
+    # one batch of the queries (its time grows with the batch).
     variants = (("plain", False, False), ("span", True, False),
                 ("lastrow", True, True))
     shapes = {"Human": (qt, rt, 16384), "ECG-cut": (qe, re_, 32)}
@@ -1269,7 +1666,7 @@ def main() -> int:
                 k_ms = cuda_ms(lambda: ops.sdtw_cuda(
                     qq, rr, return_spans=track, return_lastrow=lastrow,
                     device=dev, kernel=kernel),
-                    reps=2 if shape == "ECG-cut" else 3)
+                    **reps_for(kernel, 2 if shape == "ECG-cut" else 3))
                 times[f"{kernel}_{var}", shape] = k_ms
                 log(f"timing {kernel}_{var} at {shape}: kernel {k_ms:.3f} "
                     f"ms ({cells_ / (k_ms / 1e3):.4g} cells/s)")
@@ -1310,7 +1707,7 @@ def main() -> int:
             k_ms = cuda_ms(lambda: ops.sdtw_cuda(
                 qe, re_, return_spans=track, return_lastrow=lastrow,
                 device=dev, kernel=kernel, excl_lo=ban_lo, excl_hi=ban_hi),
-                reps=2)
+                **reps_for(kernel, 2))
             times[f"{kernel}_{var}_ban", "ECG-cut"] = k_ms
             log(f"timing {kernel}_{var}_ban at ECG-cut: kernel {k_ms:.3f} ms"
                 f" (without the ban {times[f'{kernel}_{var}', 'ECG-cut']:.3f}"
@@ -1323,21 +1720,22 @@ def main() -> int:
             qe[:32], re_, track=track, lastrow=lastrow,
             excl_lo=ban_lo[:32], excl_hi=ban_hi[:32])), reps=1, warmup=False)
         plain_times[var + "_ban", "ECG-cut"] = p_ms
-        h.compare(f"{var} with bans at ECG-cut: rows vs wavefront",
-                  outs["rows"], outs["wavefront"])
+        for kernel in ("chain", "wavefront"):
+            h.compare(f"{var} with bans at ECG-cut: rows vs {kernel}",
+                      outs["rows"], outs[kernel])
         for kernel, out in outs.items():
             h.record(ops.variant(track, lastrow, kernel, True), h.compare(
                 f"{kernel} {var} with bans at ECG-cut, 32 queries vs plain",
                 [None if x is None else x[:32] for x in out], pout[0]))
         del outs, pout
         log(f"timing plain version {var} with bans at ECG-cut: {p_ms:.3f} ms "
-            f"for one batch of 32 of the {bq_e} queries; both kernels equal "
+            f"for one batch of 32 of the {bq_e} queries; the kernels equal "
             f"on all {bq_e} and the plain version on those 32")
 
     # The other Table V shapes, cut to 4,224 queries (32 warps on each of
     # 132 SMs) and a reference of at most 8e10 cells (at least 20 N
     # samples, and at most 6.4e8 last-row entries): which kernel is the
-    # faster in each variant (``choose_kernel``); the two agree bitwise.
+    # faster in each variant (``choose_kernel``); the three agree bitwise.
     for shape in ("Song", "Penguin", "Seismology", "Power"):
         w = load_real_workload_shapes()[shape]
         n_, b_ = w["query_size"], min(w["num_queries"], 4224)
@@ -1353,15 +1751,19 @@ def main() -> int:
                     out[kernel] = _flat(ops.sdtw_cuda(
                         qq, rr, return_spans=track, return_positions=True,
                         return_lastrow=lastrow, device=dev, kernel=kernel))
-                ms[kernel] = cuda_ms(run, reps=2)
-            h.compare(f"{shape} {var} rows vs wavefront", out["rows"],
-                      out["wavefront"])
+                ms[kernel] = cuda_ms(run, **reps_for(kernel, 2))
+            for kernel in ("chain", "wavefront"):
+                h.compare(f"{shape} {var} rows vs {kernel}", out["rows"],
+                          out[kernel])
             del out
             log(f"timing {var} at {shape} cut ({b_}x{n_} vs {m_}, R="
-                f"{ops.resolve_rows(b_, n_, sms=n_sm)[1]}): rows "
-                f"{ms['rows']:.3f} ms, wavefront {ms['wavefront']:.3f} ms; "
-                f"rows/wavefront {ms['rows'] / ms['wavefront']:.3f}")
+                f"{ops.resolve_rows(b_, n_, sms=n_sm)[1]}, chain "
+                f"{ops.resolve_chain(b_, n_, sms=n_sm)}): rows "
+                f"{ms['rows']:.3f} ms, chain {ms['chain']:.3f} ms, wavefront "
+                f"{ms['wavefront']:.3f} ms; rows/chain "
+                f"{ms['rows'] / ms['chain']:.3f}")
         del qq, rr
+    sweep = chain_sweep(torch, np, ops, ref_e, (qe, re_), n_sm, dev)
 
     # Phases 9-11: search, streaming and alignment at full width. The
     # 8-query runs use a level-shifted reference of ECG's length, where
@@ -1386,12 +1788,19 @@ def main() -> int:
     sj_paths, _ = phase_self_join(torch, np, ops, kpkg, h, ref_e,
                                    int32_rate, dev)
     path_by.update(sj_paths)
+    path_by.update(phase_self_join_direct(torch, np, ops, h, reference, n,
+                                          dev))
     path_by.update(phase_self_join_long(torch, np, ops, h, ref_e[:100_000],
-                                        dev))
+                                        1600, "chain", dev))
+    path_by.update(phase_self_join_long(torch, np, ops, h, ref_e[:40_000],
+                                        9000, "wavefront", dev))
     path_by["profile_pruned"] = phase_profile_pruned(torch, np, ops, kpkg,
                                                      ls_ref, dev)
     path_by["stream_profile"] = phase_stream_profile(torch, np, ops, kpkg,
                                                      ref_e, dev)
+    long_paths, long_out = phase_long_windows(torch, np, ops, kpkg, h, ref_e,
+                                              int32_rate, dev)
+    path_by.update(long_paths)
     path_by = {"matsa_human": human_launches, "topk_fold_human":
                topk_launches, "sdtw_spans_ecg": ecg_launches,
                "long_queries": long_launches, **path_by}
@@ -1412,35 +1821,43 @@ def main() -> int:
                 "bytes" if t_bytes > t_ops else "operations")
 
     dims = {"Human": (nq, n, m), "ECG-cut": (bq_e, ne, me)}
-    for var, track, lastrow in variants:
-        for shape in shapes:
-            b_ms, b_by = bound(*dims[shape], track, lastrow)
-            log(f"bound {var} at {shape}: {b_ms:.3f} ms ({b_by}); rows "
-                f"{times['rows_' + var, shape] / b_ms:.2f}x, wavefront "
-                f"{times['wavefront_' + var, shape] / b_ms:.2f}x it")
+    for (var, track, lastrow) in variants:
+        for shape, ban in (("Human", False), ("ECG-cut", False),
+                           ("ECG-cut", True)):
+            suffix = "_ban" if ban else ""
+            b_ms, b_by = bound(*dims[shape], track, lastrow,
+                               banned_cols if ban else 0)
+            t = {kern: times[f"{kern}_{var}{suffix}", shape]
+                 for kern in ops.KERNELS}
+            log(f"bound {var}{suffix} at {shape}: {b_ms:.3f} ms ({b_by}); "
+                + ", ".join(f"{kern} {ms / b_ms:.2f}x"
+                            for kern, ms in t.items())
+                + f"; wavefront/chain {t['wavefront'] / t['chain']:.2f}")
+    for case, ms in sweep.items():
+        log(f"chain policy {case}: " + ", ".join(
+            f"{c} {t:.3f} ms" for c, t in ms.items()))
+    batch, spans = long_out["batch_ms"], long_out["spans_ms"]
+    log(f"phase 15 summary: self-join window 2048 "
+        f"{long_out['self_join_s']:.3f} s wall (kernel "
+        f"{long_out['self_join_kernel_ms']:.3f} ms); first batch chain "
+        f"{batch['chain']:.3f} ms, wavefront {batch['wavefront']:.3f} ms "
+        f"({batch['wavefront'] / batch['chain']:.2f}x); 4,096 spans chain "
+        f"{spans['chain']:.3f} ms, wavefront {spans['wavefront']:.3f} ms "
+        f"({spans['wavefront'] / spans['chain']:.2f}x), K2 bound "
+        f"{long_out['spans_bound_ms']:.3f} ms")
     rows = []
     src = {"rows": "src/repro_torch/kernels/sdtw/csrc/sdtw_rows.cu",
+           "chain": "src/repro_torch/kernels/sdtw/csrc/sdtw_chain.cu",
            "wavefront": "src/repro_torch/kernels/sdtw/csrc/sdtw.cu"}
-    # Launches on the path that runs the kernel (phases 4-7); times at the
-    # Table V shape of the path that runs the variant at full width.
-    # The ban variants: launches on the self-join paths (phase 12), times
-    # at ECG-cut with self-join zones (phase 8).
-    path_launches = {"rows_plain": human_launches["rows_plain"],
-                     "rows_span": ecg_launches["rows_span"],
-                     "rows_lastrow": topk_launches["rows_lastrow"],
-                     **long_launches,
-                     **{k: v for p_ in ("self_join_ecg",
-                                        "self_join_windows_ecg",
-                                        "self_join_long",
-                                        "self_join_long_windows")
-                        for k, v in path_by[p_].items()
-                        if k.endswith("_ban") and v}}
-    for (var, track, lastrow) in variants:
-        b_ms, b_by = bound(*dims["ECG-cut"], track, lastrow, banned_cols)
-        log(f"bound {var} with self-join bans at ECG-cut: {b_ms:.3f} ms "
-            f"({b_by}); rows {times[f'rows_{var}_ban', 'ECG-cut'] / b_ms:.2f}x"
-            f", wavefront "
-            f"{times[f'wavefront_{var}_ban', 'ECG-cut'] / b_ms:.2f}x it")
+    # Launches summed over the paths that ran (each read from counts set
+    # to 0 just before it; ``launches_by_path``); times at the Table V
+    # shape of the path that runs the variant at full width, the ban
+    # variants at ECG-cut with self-join zones (phase 8).
+    path_launches = {key: sum(c.get(key, 0) for c in path_by.values())
+                     for key in ops.LAUNCHES}
+    missed = [key for key, v in path_launches.items() if not v]
+    if missed:
+        raise AssertionError(f"no path launched {missed}")
     for ban in (False, True):
         for kernel in ops.KERNELS:
             for var, track, lastrow in variants:

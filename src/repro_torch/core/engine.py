@@ -22,8 +22,9 @@ with rule 3 read for the card:
   2. ``top_k`` or ``chunk`` given                  → chunked streaming.
   3. the tensors are on a CUDA device              → the sDTW kernel (it
      loops over any M inside each block; exclusion zones become its
-     per-query column ban, where the reference's rule 3 sends them to
-     the row scan — the same answers).
+     per-query column ban, where the reference's rule 3 passes them on
+     to rules 4-6 — the same answers, a fully banned query's end
+     included).
   4. M ≥ ``CHUNK_THRESHOLD``                       → chunked streaming.
   5. M < 2·N                                       → wavefront.
   6. otherwise                                     → rowscan.
@@ -147,8 +148,10 @@ def sdtw(queries, reference, qlens=None, *, metric: str = "abs_diff",
     triple in the positions/spans modes; (nq, k) stacks with ``top_k``.
     A query whose every column is banned by ``excl_lo``/``excl_hi`` gets
     distance BIG on every route, but its end and start depend on the
-    route, as in the reference: -1 on the kernel (the card's route) and
-    the chunked and top-K routes, column 0 on the row scan (the CPU's).
+    route, as in the reference: column 0 on the row scan, -1 on the
+    wavefront, chunked and top-K routes. On the card ``impl='auto'``
+    takes the kernel, and answers as the route the reference's rules
+    4-6 pick for the same shape (column 0 where that is the row scan).
     """
     return SdtwRequest(
         queries=queries, reference=reference, qlens=qlens, metric=metric,
@@ -200,6 +203,11 @@ def _execute_sdtw(req: SdtwRequest):
                             return_positions=req.return_positions,
                             return_spans=req.return_spans, device=dev,
                             excl_lo=req.excl_lo, excl_hi=req.excl_hi)
+            if (has_excl and isinstance(out, tuple)
+                    and choose_impl_explained(
+                        nq, n, m, backend="cpu",
+                        has_exclusion=True)[0] == "rowscan"):
+                out = _as_row_scan(out)
         else:
             out = _pallas_streamed(queries, reference, qlens, req.metric,
                                    req.chunk, req.block_q, req.block_m,
@@ -310,6 +318,18 @@ def align(queries, reference, qlens=None, *, metric: str = "abs_diff",
         results.append(AlignResult(distance=d[i], start=start, end=end,
                                    path=path))
     return results[0] if single else results
+
+
+def _as_row_scan(out):
+    """The kernel's ``(dists, ends)`` or ``(dists, starts, ends)`` with the
+    row scan's end and start for a query whose last row never drops below
+    BIG (every column banned): column 0, the row scan's argmin over an
+    all-BIG row, where the kernel keeps -1. Under ``impl='auto'`` the
+    kernel takes exclusion ranges where the reference's rule 3 passes
+    them on to rules 4-6; where those pick the row scan, the kernel
+    answers as the row scan does (the chunked and wavefront routes keep
+    -1, as the kernel does). No host sync."""
+    return (out[0],) + tuple(x.clamp_min(0) for x in out[1:])
 
 
 def _pallas_streamed(queries, reference, qlens, metric, chunk, block_q,

@@ -99,6 +99,13 @@ class SdtwRequest:
     explain: bool = False
     op: str = "sdtw"
     device: Any = None
+    # --- serve-tier-only -------------------------------------------------
+    # Scheduling metadata, as in the reference: ``priority`` (an int,
+    # higher drains sooner) and ``tenant`` (hashable, keys quotas) are
+    # validated and ignored by ``run()``; the serve tier that reads them
+    # is ROADMAP item 13.
+    priority: int = 0
+    tenant: Any = None
     # --- search_topk-only ------------------------------------------------
     prune: bool = True
     span_cap: Optional[int] = None
@@ -117,6 +124,16 @@ class SdtwRequest:
         """Run every front-door check; returns ``self``."""
         if self.op not in OPS:
             raise ValueError(f"op must be one of {OPS}, got {self.op!r}")
+        if not isinstance(self.priority, int) \
+                or isinstance(self.priority, bool):
+            raise ValueError(f"priority must be an int (higher drains "
+                             f"sooner), got {self.priority!r}")
+        try:
+            hash(self.tenant)
+        except TypeError:
+            raise ValueError(f"tenant must be hashable (it keys per-tenant "
+                             f"quotas), got {type(self.tenant).__name__}") \
+                from None
         if self.tune not in TUNE_MODES:
             raise ValueError(f"tune must be one of {TUNE_MODES}, got "
                              f"{self.tune!r}")

@@ -1,12 +1,13 @@
-"""The sDTW kernels: two hand-written Hopper kernels (``csrc/sdtw_rows.cu``
-and ``csrc/sdtw.cu``), their plain PyTorch version and the wrapper that
-dispatches between them."""
-from .ops import (KERNELS, LAUNCHES, ROWS_MAX_N, carry_from_numpy,
-                  carry_to_numpy, choose_kernel, kernel_carry_init,
-                  reset_launches, resolve_blocks, resolve_rows, sdtw_cuda)
+"""The sDTW kernels: three hand-written Hopper kernels
+(``csrc/sdtw_rows.cu``, ``csrc/sdtw_chain.cu`` and ``csrc/sdtw.cu``), their
+plain PyTorch version and the wrapper that dispatches between them."""
+from .ops import (CHAIN_MAX_N, KERNELS, LAUNCHES, ROWS_MAX_N,
+                  carry_from_numpy, carry_to_numpy, choose_kernel,
+                  kernel_carry_init, reset_launches, resolve_blocks,
+                  resolve_chain, resolve_rows, sdtw_cuda)
 from .sdtw import sdtw_kernel_plain
 
-__all__ = ["KERNELS", "LAUNCHES", "ROWS_MAX_N", "carry_from_numpy",
-           "carry_to_numpy", "choose_kernel", "kernel_carry_init",
-           "reset_launches", "resolve_blocks", "resolve_rows", "sdtw_cuda",
-           "sdtw_kernel_plain"]
+__all__ = ["CHAIN_MAX_N", "KERNELS", "LAUNCHES", "ROWS_MAX_N",
+           "carry_from_numpy", "carry_to_numpy", "choose_kernel",
+           "kernel_carry_init", "reset_launches", "resolve_blocks",
+           "resolve_chain", "resolve_rows", "sdtw_cuda", "sdtw_kernel_plain"]

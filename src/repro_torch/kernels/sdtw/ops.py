@@ -11,21 +11,26 @@ a banned column range per query, ``[excl_lo[b], excl_hi[b])`` in global
 columns (the self-join's trivial-match zone, which the reference's row
 scan applies as BIG distances), so that exclusion zones run on the card.
 
-Two kernels compute the same function (``kernel=``):
+Three kernels compute the same function (``kernel=``):
 
   * ``rows`` (``csrc/sdtw_rows.cu``): one warp per query, ``R`` rows per
     lane in registers, a skewed sweep with no shared memory and no
     barrier; queries of up to ``ROWS_MAX_N`` samples;
+  * ``chain`` (``csrc/sdtw_chain.cu``): one query across the ``W`` warps
+    of a block, each warp the rows kernel's sweep over its ``32·R`` rows,
+    the warps handing their bottom row down through mbarrier-guarded
+    rings in shared memory; queries of up to ``CHAIN_MAX_N`` samples;
   * ``wavefront`` (``csrc/sdtw.cu``): one block per ``block_q`` queries
     walking the anti-diagonals through shared memory, or through a global
     scratch when a block's rows do not fit there; any N.
 
-``kernel="auto"`` takes the rows kernel up to ``ROWS_MAX_N`` and the
-wavefront kernel beyond (``choose_kernel``). Dispatch: tensors on a CUDA
-device launch the chosen kernel (built at first use by ``_build``);
-tensors on the CPU run the plain PyTorch version of both
-(``sdtw.sdtw_kernel_plain``). There is no fallback: a CUDA call that
-cannot launch raises.
+``kernel="auto"`` takes the rows kernel up to ``ROWS_MAX_N`` (the chain
+kernel for a small batch on the card), the chain kernel up to
+``CHAIN_MAX_N`` and the wavefront kernel beyond (``choose_kernel``).
+Dispatch: tensors on a CUDA device launch the chosen
+kernel (built at first use by ``_build``); tensors on the CPU run the
+plain PyTorch version of all three (``sdtw.sdtw_kernel_plain``). There is
+no fallback: a CUDA call that cannot launch raises.
 
 Each launch adds one to ``LAUNCHES["<kernel>_<variant>"]``, where the
 variant is ``plain`` (K1), ``span`` (K2, start lane) or ``lastrow`` (K3,
@@ -46,7 +51,7 @@ from repro_torch.device import as_tensor, resolve_device
 from . import _build
 from .sdtw import sdtw_kernel_plain
 
-KERNELS = ("rows", "wavefront")
+KERNELS = ("rows", "chain", "wavefront")
 #: Rows per lane the rows kernel is built for (``pick_rows`` in
 #: ``csrc/sdtw_rows.cu``): a warp covers up to 32·R query rows.
 ROWS_PER_LANE = (1, 2, 4, 7, 8, 16, 25, 32, 48)
@@ -55,6 +60,19 @@ ROWS_MAX_N = 32 * ROWS_PER_LANE[-1]
 #: Warps (queries) per block of the rows kernel: the default and the most.
 ROWS_WARPS = 4
 ROWS_MAX_WARPS = 8
+#: Rows per lane the chain kernel is built for (``pick_rows`` in
+#: ``csrc/sdtw_chain.cu``), and the most warps a block (so a query)
+#: takes: 512 threads of up to 128 registers fill the SM's 65,536.
+CHAIN_ROWS = (4, 8, 16)
+CHAIN_MAX_WARPS = 16
+#: Longest query the chain kernel takes: 16 warps of 32 lanes of 16 rows.
+CHAIN_MAX_N = 32 * CHAIN_ROWS[-1] * CHAIN_MAX_WARPS
+#: Warps an SM in use should hold before the chain policy takes fewer,
+#: longer warps, and a step's overhead in cells (the loop's per-step
+#: instructions over a cell's: a larger R shares it over more rows). Both
+#: fitted on the H100 (PERF.md §6).
+CHAIN_WARPS_PER_SM = 12
+CHAIN_STEP_ROWS = 4
 #: Threads a wavefront block aims for: queries of up to 512 rows share it.
 BLOCK_THREADS = 512
 #: Reference samples staged into shared memory per tile.
@@ -109,19 +127,36 @@ def kernel_bans(excl_lo, excl_hi, b: int, device, test_device=False):
     return lo.to(device).contiguous(), hi.to(device).contiguous()
 
 
-def choose_kernel(n: int, kernel: str = "auto") -> str:
-    """The kernel a (·, n) batch runs on: ``kernel`` itself when forced,
-    else the rows kernel up to ``ROWS_MAX_N`` and the wavefront beyond.
-    Raises ``ValueError`` for an unknown name or a query too long for the
-    rows kernel."""
+def choose_kernel(n: int, kernel: str = "auto", b=None, sms=None) -> str:
+    """The kernel a (b, n) batch runs on: ``kernel`` itself when forced,
+    else the rows kernel up to ``ROWS_MAX_N``, the chain kernel up to
+    ``CHAIN_MAX_N`` and the wavefront beyond — with one exception, where
+    the batch and the card's SM count are given: a batch of b <
+    ``CHAIN_WARPS_PER_SM``·sms queries of up to ``ROWS_MAX_N`` samples,
+    whose one warp a query leaves the SMs short of warps, runs on the
+    chain kernel when that splits each query across several warps: on
+    the H100 the chain kernel was 1.1-1.7× faster at ECG-cut's 256
+    queries and on the self-join's batches of 256 windows of 512, the
+    rows kernel at Human's 131,072 (PERF.md §6). The answers are the
+    same. Raises ``ValueError`` for an unknown name or a query too long
+    for the forced kernel."""
     if kernel == "auto":
-        return "rows" if n <= ROWS_MAX_N else "wavefront"
+        if n > ROWS_MAX_N:
+            return "chain" if n <= CHAIN_MAX_N else "wavefront"
+        if (b is not None and sms is not None
+                and b < CHAIN_WARPS_PER_SM * sms
+                and resolve_chain(b, n, sms=sms)[0] > 1):
+            return "chain"
+        return "rows"
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be 'auto' or one of {KERNELS}, got "
                          f"{kernel!r}")
     if kernel == "rows" and n > ROWS_MAX_N:
         raise ValueError(f"the rows kernel takes queries of up to "
                          f"{ROWS_MAX_N} samples, got N={n}")
+    if kernel == "chain" and n > CHAIN_MAX_N:
+        raise ValueError(f"the chain kernel takes queries of up to "
+                         f"{CHAIN_MAX_N} samples, got N={n}")
     return kernel
 
 
@@ -155,6 +190,44 @@ def resolve_rows(b: int, n: int, block_q=None, *, sms: int):
         raise ValueError(f"the rows kernel takes 1 to {ROWS_MAX_WARPS} "
                          f"queries per block, got block_q={block_q}")
     return block_q, (fit or cover)[0]
+
+
+def resolve_chain(b: int, n: int, block_q=None, *, sms: int):
+    """The chain kernel's launch policy for a (b, n) batch on a card of
+    ``sms`` SMs.
+
+    Returns ``(warps, rows, block_q)``: W, the warps of one query (each
+    owns 32·R rows), R, the rows per lane, and the queries per block.
+    A query is one block, so b queries keep min(b, sms) SMs busy with
+    W·max(1, b / sms) warps each. Among the R of ``CHAIN_ROWS`` that give
+    those SMs ``CHAIN_WARPS_PER_SM`` warps, the one with the least issue,
+    W·(R + ``CHAIN_STEP_ROWS``) rows a step (slack rows and per-step
+    overhead), ties to an R that divides n (row n - 1 is then a lane's
+    last slot and the harvest reads a fixed register); when none gives
+    that many, the R with the most warps.
+    ``block_q=None`` puts queries of fewer than 4 warps several to a block
+    (at most 4 warps, and no fewer blocks than SMs). Raises ``ValueError``
+    for a query longer than ``CHAIN_MAX_N`` or a block the kernel does not
+    take.
+    """
+    n = max(int(n), 1)
+    cover = [(r, -(-n // (32 * r))) for r in CHAIN_ROWS
+             if -(-n // (32 * r)) <= CHAIN_MAX_WARPS]
+    if not cover:
+        raise ValueError(f"the chain kernel takes queries of up to "
+                         f"{CHAIN_MAX_N} samples, got N={n}")
+    busy = [c for c in cover
+            if c[1] * max(1.0, b / sms) >= CHAIN_WARPS_PER_SM]
+    rows, warps = (min(busy, key=lambda c: (c[1] * (c[0] + CHAIN_STEP_ROWS),
+                                            n % c[0] != 0))
+                   if busy else max(cover, key=lambda c: c[1]))
+    if block_q is None:
+        block_q = max(1, min(4 // warps, b // sms))
+    if block_q < 1 or block_q * warps > CHAIN_MAX_WARPS:
+        raise ValueError(f"the chain kernel takes 1 to "
+                         f"{CHAIN_MAX_WARPS // warps} queries per block at "
+                         f"N={n}, got block_q={block_q}")
+    return warps, rows, block_q
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -254,6 +327,10 @@ def _lib(name: str):
         if name == "sdtw":
             lib.sdtw_launch.argtypes = [i] * 4 + [p] * 17 + [i] * 10 + [p] * 2
             lib.sdtw_launch.restype = i
+        elif name == "sdtw_chain":
+            lib.sdtw_chain_launch.argtypes = ([i] * 3 + [p] * 17 + [i] * 9
+                                              + [p])
+            lib.sdtw_chain_launch.restype = i
         else:
             lib.sdtw_rows_launch.argtypes = [i] * 3 + [p] * 17 + [i] * 8 + [p]
             lib.sdtw_rows_launch.restype = i
@@ -264,20 +341,24 @@ def _lib(name: str):
 def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
                  ref_offset, rlen, ref_lead, want_lastrow, block_q, block_m,
                  kernel, bans=None):
-    """Allocate the outputs and launch ``kernel`` (``"rows"`` or
-    ``"wavefront"``) on the current stream — its instantiation with the
-    ban when ``bans`` (``kernel_bans``) is given; the wavefront kernel in
-    batch slices when its global scratch would exceed ``SCRATCH_LIMIT``."""
+    """Allocate the outputs and launch ``kernel`` (``"rows"``,
+    ``"chain"`` or ``"wavefront"``) on the current stream — its
+    instantiation with the ban when ``bans`` (``kernel_bans``) is given;
+    the wavefront kernel in batch slices when its global scratch would
+    exceed ``SCRATCH_LIMIT``."""
     track = bstart is not None
     b, n = q.shape
     m = r.shape[0]
     acc = q.dtype
     dev = q.device
+    if kernel != "wavefront" and block_m is not None:
+        raise ValueError(f"block_m is the wavefront kernel's staged tile; "
+                         f"the {kernel} kernel stages none")
     if kernel == "rows":
-        if block_m is not None:
-            raise ValueError("block_m is the wavefront kernel's staged tile; "
-                             "the rows kernel stages none")
         warps, rows = resolve_rows(b, n, block_q, sms=sm_count(dev.index))
+    elif kernel == "chain":
+        warps, rows, bq = resolve_chain(b, n, block_q,
+                                        sms=sm_count(dev.index))
     else:
         bq, tile, tpq, ring, scratch = resolve_blocks(b, m, block_q, block_m,
                                                       n=n, span=track)
@@ -303,7 +384,7 @@ def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel == "rows":
+        if kernel != "wavefront":
             slices = [(0, b)]
         else:
             step = scratch_batch(n, bq, track) if scratch else b
@@ -317,6 +398,10 @@ def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
                 err = _lib("sdtw_rows").sdtw_rows_launch(
                     *flags, *ptrs(lo, hi), hi - lo, n, *scalars, rows,
                     warps, stream)
+            elif kernel == "chain":
+                err = _lib("sdtw_chain").sdtw_chain_launch(
+                    *flags, *ptrs(lo, hi), hi - lo, n, *scalars, rows,
+                    warps, bq, stream)
             else:
                 err = _lib("sdtw").sdtw_launch(
                     *flags, int(want_lastrow), *ptrs(lo, hi), hi - lo, n,
@@ -342,11 +427,12 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
 
     Inputs are moved to ``device`` (default the CUDA device; ``"cpu"``
     runs the plain version). ``kernel`` picks the CUDA kernel: ``"auto"``
-    (``choose_kernel``), ``"rows"`` or ``"wavefront"``; the CPU runs the
-    plain version whatever it says. ``block_q`` overrides the queries per
-    block of either kernel's policy (``resolve_rows``, ``resolve_blocks``),
-    ``block_m`` the wavefront's staged tile (a CUDA launch of the rows
-    kernel raises if it is given). ``carry`` continues a
+    (``choose_kernel``), ``"rows"``, ``"chain"`` or ``"wavefront"``; the
+    CPU runs the plain version whatever it says. ``block_q`` overrides the
+    queries per block of each kernel's policy (``resolve_rows``,
+    ``resolve_chain``, ``resolve_blocks``), ``block_m`` the wavefront's
+    staged tile (a CUDA launch of the rows or chain kernel raises if it is
+    given). ``carry`` continues a
     previous call's ``return_carry=True`` state (a 5-tuple selects span
     mode; a legacy ``(bcol, best)`` pair seeds positions at -1).
     ``ref_offset`` is the global column of ``reference[0]``, so reported
@@ -376,7 +462,8 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
                          f"{tuple(reference.shape)}")
     b, n = queries.shape
     m = reference.shape[0]
-    kernel = choose_kernel(n, kernel)
+    kernel = choose_kernel(n, kernel, b,
+                           sm_count(dev.index) if dev.type == "cuda" else None)
     if m == 0:
         raise ValueError("reference must be non-empty")
     rlen = m if ref_len is None else int(ref_len)

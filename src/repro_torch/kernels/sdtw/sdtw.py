@@ -1,13 +1,13 @@
 """Plain PyTorch version of the sDTW kernel.
 
-``sdtw_kernel_plain`` computes exactly what both hand-written Hopper
-kernels (``csrc/sdtw_rows.cu`` and ``csrc/sdtw.cu``) compute — the
-contract of the reference's Pallas kernel
+``sdtw_kernel_plain`` computes exactly what the three hand-written Hopper
+kernels (``csrc/sdtw_rows.cu``, ``csrc/sdtw_chain.cu`` and ``csrc/sdtw.cu``)
+compute — the contract of the reference's Pallas kernel
 ``repro.kernels.sdtw.sdtw._sdtw_kernel`` under ``sdtw_pallas`` — with
 stock tensor operations: a loop over the N query rows, each row solved
 over the whole reference by a (min,+) prefix scan
 (``repro_torch.core.sdtw.tropical_scan``). The CPU tests run it against
-the JAX package, and ``chip_smoke.py`` holds both CUDA kernels against it
+the JAX package, and ``chip_smoke.py`` holds the CUDA kernels against it
 on the card. The ``sdtw_cuda`` wrapper runs it for tensors that lie on
 the CPU; nothing runs it for CUDA tensors.
 

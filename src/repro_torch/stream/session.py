@@ -150,8 +150,9 @@ def _pallas_step(queries, tile, qlens, kcarry, heap, j0, clen, zone, *,
     last-row capture into the top-K heap with the per-tile
     ``topk_merge`` the rowscan path runs. ``excl_lo``/``excl_hi`` are the
     kernel's per-query ban (global columns, on the device), or ``None``.
-    ``block_m`` is the wavefront kernel's staged tile; a rows-kernel
-    launch stages none, so it is passed to wavefront launches only."""
+    ``block_m`` is the wavefront kernel's staged tile; a rows- or
+    chain-kernel launch stages none, so it is passed to wavefront launches
+    only."""
     from repro_torch.kernels.sdtw import choose_kernel, sdtw_cuda
     if choose_kernel(queries.shape[1]) != "wavefront":
         block_m = None

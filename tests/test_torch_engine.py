@@ -195,6 +195,48 @@ def test_ragged_list_on_a_cuda_backend_takes_the_kernel(rng, monkeypatch):
     _equal(got, _jsdtw(qs, jnp.asarray(r), return_spans=True))
 
 
+@pytest.mark.parametrize("m,route", [(60, "rowscan"), (14, "wavefront")])
+@pytest.mark.parametrize("mode", ["positions", "spans"])
+def test_fully_banned_rows_on_the_kernel_route_answer_as_the_row_scan(
+        mode, m, route, rng, monkeypatch):
+    """Exclusion ranges under ``impl='auto'`` take the kernel on a CUDA
+    backend, where the reference's rule 3 passes them on to its rules
+    4-6. Where those pick the row scan (M ≥ 2N), a query banned on every
+    column reports end (and start) 0, the row scan's argmin over an
+    all-BIG row, not the kernel's -1; where they pick the wavefront
+    (M < 2N), -1 as it does. Every output, fully banned rows included,
+    equals the JAX package's ``engine.sdtw``. Here the dispatch is asked
+    as for the card, and the kernel's CPU stand-in runs."""
+    import repro_torch.kernels.sdtw.ops as ops
+    chosen, banned = [], []
+    real_choose, real_plain = tengine.choose_impl, ops.sdtw_kernel_plain
+
+    def as_on_the_card(*a, **kw):
+        chosen.append(real_choose(*a, **dict(kw, backend="cuda")))
+        return chosen[-1]
+
+    def plain(*a):
+        banned.append(a[-1] is not None)
+        return real_plain(*a)
+    monkeypatch.setattr(tengine, "choose_impl", as_on_the_card)
+    monkeypatch.setattr(ops, "sdtw_kernel_plain", plain)
+    q = rng.integers(-30, 30, (5, 9)).astype(np.int32)
+    r = rng.integers(-30, 30, m).astype(np.int32)
+    assert jengine.choose_impl(5, 9, m, backend="cpu", tune="off",
+                               has_exclusion=True) == route
+    lo = np.array([0, 2, 0, 10, -5], np.int32)
+    hi = np.array([2**31 - 1, 5, m, 12, 100], np.int32)     # 3 fully banned
+    kw = dict(return_positions=mode == "positions",
+              return_spans=mode == "spans")
+    got = _tsdtw(q, r, excl_lo=lo, excl_hi=hi, **kw)
+    assert chosen == ["pallas"] and banned == [True]
+    want = _jsdtw(q, r, excl_lo=jnp.asarray(lo), excl_hi=jnp.asarray(hi),
+                  **kw)
+    _equal(got, want)
+    assert (got[0][[0, 2, 4]] == 2**29).all()
+    assert (got[-1][[0, 2, 4]] == (0 if route == "rowscan" else -1)).all()
+
+
 # ---------------------------------------------------------------------------
 # The request surface
 # ---------------------------------------------------------------------------
@@ -240,6 +282,26 @@ def test_unported_options_name_their_roadmap_item(kw, item):
                       reference=np.zeros(8, np.int32), device="cpu", **kw)
     with pytest.raises(NotImplementedError, match=item):
         req.run()
+
+
+def test_request_priority_and_tenant_as_in_the_reference(batch):
+    """``priority`` and ``tenant`` are validated request fields, as in the
+    reference, and ``run()`` ignores them; a bool priority or an
+    unhashable tenant raises the reference's message."""
+    q, r, _ = batch
+    req = SdtwRequest.from_kwargs(queries=q, reference=r, priority=2,
+                                  tenant="a", device="cpu")
+    assert (req.priority, req.tenant) == (2, "a")
+    _equal(req.run(), _tsdtw(q, r))
+    for kw in (dict(priority=True), dict(priority=1.5), dict(tenant=[1])):
+        with pytest.raises(ValueError) as want:
+            jengine.SdtwRequest.from_kwargs(queries=jnp.asarray(q),
+                                            reference=jnp.asarray(r),
+                                            **kw).run()
+        with pytest.raises(ValueError) as got:
+            SdtwRequest.from_kwargs(queries=q, reference=r, device="cpu",
+                                    **kw).run()
+        assert str(got.value) == str(want.value)
 
 
 def test_request_equals_kwargs_and_rejects_unknown(batch):

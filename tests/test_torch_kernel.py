@@ -21,13 +21,16 @@ from repro.core.sdtw import (sdtw_batch, sdtw_carry_init,
 from repro.core.topk import topk_init
 from repro.kernels.sdtw import pallas_carry_init, sdtw_pallas
 from repro_torch.core.matsa_api import load_real_workload_shapes
-from repro_torch.kernels.sdtw import (LAUNCHES, ROWS_MAX_N,
+from repro_torch.kernels.sdtw import (CHAIN_MAX_N, LAUNCHES, ROWS_MAX_N,
                                       carry_from_numpy, carry_to_numpy,
                                       choose_kernel,
                                       kernel_carry_init, resolve_blocks,
-                                      resolve_rows, sdtw_cuda,
+                                      resolve_chain, resolve_rows, sdtw_cuda,
                                       sdtw_kernel_plain)
-from repro_torch.kernels.sdtw.ops import (ROWS_PER_LANE, SCRATCH_LIMIT,
+from repro_torch.kernels.sdtw import ops
+from repro_torch.kernels.sdtw.ops import (CHAIN_MAX_WARPS, CHAIN_ROWS,
+                                          CHAIN_WARPS_PER_SM,
+                                          ROWS_PER_LANE, SCRATCH_LIMIT,
                                           kernel_bans, scratch_batch,
                                           smem_bytes, variant)
 
@@ -192,9 +195,12 @@ def test_resolve_blocks_hopper_policy():
     bq, _, tpq, _, scratch = resolve_blocks(16, 10**6, n=1536, span=True)
     assert (bq, tpq, scratch) == (1, 512, False)
     assert resolve_blocks(8, 64, 2, 32, n=33) == (2, 32, 64, 128, False)
-    # N = 5000 runs on the wavefront kernel; one query a block still fits
-    # in shared memory (172,768 bytes in span mode), two do not.
-    assert choose_kernel(5000) == "wavefront"
+    # N = 5000 runs on the chain kernel, and on the wavefront kernel when
+    # forced: one query a block still fits in shared memory (172,768
+    # bytes in span mode), two do not; past CHAIN_MAX_N the wavefront is
+    # the "auto" choice.
+    assert choose_kernel(5000) == "chain"
+    assert choose_kernel(CHAIN_MAX_N + 1) == "wavefront"
     bq, _, tpq, _, scratch = resolve_blocks(4, 3000, n=5000, span=True)
     assert (bq, tpq, scratch) == (1, 512, False)
     assert resolve_blocks(4, 3000, 2, n=5000, span=True)[4]
@@ -210,7 +216,7 @@ def test_resolve_blocks_hopper_policy():
 
 def test_kernel_choice_and_rows_validation():
     assert choose_kernel(1) == choose_kernel(ROWS_MAX_N) == "rows"
-    assert choose_kernel(ROWS_MAX_N + 1) == "wavefront"
+    assert choose_kernel(ROWS_MAX_N + 1) == "chain"
     assert choose_kernel(10, "wavefront") == "wavefront"
     with pytest.raises(ValueError, match="kernel must be"):
         choose_kernel(10, "pallas")
@@ -365,7 +371,7 @@ def big_of(t):
 
 
 @pytest.mark.parametrize("spans", [False, True])
-@pytest.mark.parametrize("kernel", ["rows", "wavefront"])
+@pytest.mark.parametrize("kernel", ["rows", "chain", "wavefront"])
 def test_plain_version_bans_match_rowscan_whole(spans, kernel, rng):
     """The whole reference in one call: distances, ends (and starts) with a
     per-query ban equal the reference's ``sdtw_batch(impl='rowscan')``
@@ -420,5 +426,114 @@ def test_kernel_bans_normalization():
     assert variant(True, True, "rows", True) == "rows_lastrow_ban"
     assert variant(False, False, "wavefront") == "wavefront_plain"
     assert {k for k in LAUNCHES if k.endswith("_ban")} == {
-        f"{k}_{v}_ban" for k in ("rows", "wavefront")
+        f"{k}_{v}_ban" for k in ("rows", "chain", "wavefront")
         for v in ("plain", "span", "lastrow")}
+
+
+# ---------------------------------------------------------------------------
+# The chain kernel's launch policy (``csrc/sdtw_chain.cu``: one query
+# across the warps of a block), checked here; the kernel itself is held
+# against the plain version on the card (tests/test_torch_kernel_cuda.py).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 33, 120, 512, 1537, 1600, 2048, 4000,
+                               4096, 5000, 8191, CHAIN_MAX_N])
+@pytest.mark.parametrize("b", [1, 64, 256, 131_072])
+def test_resolve_chain_covers_n(b, n):
+    """W warps of 32·R rows cover n with every warp holding a row, within
+    the 16 warps a block takes; queries share a block only where the
+    batch still gives every SM a block."""
+    warps, rows, block_q = resolve_chain(b, n, sms=132)
+    assert rows in CHAIN_ROWS and 1 <= warps <= CHAIN_MAX_WARPS == 16
+    assert 32 * rows * (warps - 1) < n <= 32 * rows * warps
+    assert 1 <= block_q and block_q * warps <= CHAIN_MAX_WARPS
+    assert block_q == 1 or b // block_q >= 132
+
+
+def test_resolve_chain_policy():
+    """The slack rule: among the R whose W·max(1, b / sms) warps give each
+    SM in use ``CHAIN_WARPS_PER_SM`` warps, the least W·(R + 4) rows a
+    step, else the R with the most warps — the picks the H100 measured
+    fastest (PERF.md §6)."""
+    assert resolve_chain(256, 2048, sms=132) == (8, 8, 1)     # self-join
+    assert resolve_chain(64, 4096, sms=132) == (16, 8, 1)     # spans
+    assert resolve_chain(256, 512, sms=132) == (4, 4, 1)      # ECG-cut
+    assert resolve_chain(8, 5000, sms=132) == (10, 16, 1)     # only R = 16
+    assert resolve_chain(62, 1600, sms=132) == (13, 4, 1)
+    assert resolve_chain(1, CHAIN_MAX_N, sms=132) == (16, 16, 1)
+    assert resolve_chain(131_072, 120, sms=132) == (1, 4, 4)  # Human
+    assert resolve_chain(1000, 120, sms=132) == (1, 4, 4)
+    assert resolve_chain(3, 120, 7, sms=132) == (1, 4, 7)
+    with pytest.raises(ValueError, match="up to"):
+        resolve_chain(1, CHAIN_MAX_N + 1, sms=132)
+    with pytest.raises(ValueError, match="queries per block"):
+        resolve_chain(4, 4096, 2, sms=132)
+    with pytest.raises(ValueError, match="queries per block"):
+        resolve_chain(4, 100, 0, sms=132)
+
+
+@pytest.mark.parametrize("n,auto", [(ROWS_MAX_N, "rows"),
+                                    (ROWS_MAX_N + 1, "chain"),
+                                    (CHAIN_MAX_N, "chain"),
+                                    (CHAIN_MAX_N + 1, "wavefront")])
+def test_choose_kernel_thresholds(n, auto):
+    """``"auto"`` at both thresholds; a forced kernel past its limit
+    raises, the wavefront takes any N."""
+    assert ROWS_MAX_N == 1536 and CHAIN_MAX_N == 8192
+    assert choose_kernel(n) == auto
+    assert choose_kernel(n, "wavefront") == "wavefront"
+    for kernel, limit in (("rows", ROWS_MAX_N), ("chain", CHAIN_MAX_N)):
+        if n <= limit:
+            assert choose_kernel(n, kernel) == kernel
+        else:
+            with pytest.raises(ValueError, match=f"{kernel} kernel takes"):
+                choose_kernel(n, kernel)
+
+
+@pytest.mark.parametrize("b,n,auto", [
+    (256, 512, "chain"),            # ECG-cut: 4 warps a query
+    (256, 1536, "chain"),
+    (131_072, 120, "rows"),         # Human: the rows kernel fills the card
+    (4224, 512, "rows"),            # 32 warps an SM already
+    (CHAIN_WARPS_PER_SM * 132 - 1, 512, "chain"),
+    (CHAIN_WARPS_PER_SM * 132, 512, "rows"),
+    (8, 120, "rows"),               # one warp a query either way
+    (8, 129, "chain"),
+    (8, 1537, "chain"),
+    (1, CHAIN_MAX_N + 1, "wavefront"),
+])
+def test_choose_kernel_by_batch_on_the_card(b, n, auto):
+    """With the batch and the SM count (as ``sdtw_cuda`` passes them for a
+    CUDA tensor), ``"auto"`` takes the chain kernel for a batch too small
+    for the rows kernel's one warp a query to fill the SMs, where the
+    chain splits each query; a forced kernel is kept."""
+    assert choose_kernel(n, "auto", b, 132) == auto
+    assert choose_kernel(n, "wavefront", b, 132) == "wavefront"
+    if n <= ROWS_MAX_N:
+        assert choose_kernel(n, "rows", b, 132) == "rows"
+        assert choose_kernel(n) == "rows"
+
+
+def test_chain_launch_keys():
+    """Every variant of the chain kernel, with and without the ban, has
+    its own launch count, set to 0 with the others."""
+    keys = {f"chain_{v}{b}" for v in ("plain", "span", "lastrow")
+            for b in ("", "_ban")}
+    assert keys <= set(LAUNCHES)
+    assert len(LAUNCHES) == 18
+    assert variant(True, False, "chain", True) == "chain_span_ban"
+    LAUNCHES["chain_lastrow"] += 3
+    ops.reset_launches()
+    assert set(LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("kernel", ["rows", "chain"])
+def test_block_m_refused_off_the_wavefront(kernel):
+    """``block_m`` is the wavefront's staged tile: a rows or chain launch
+    refuses it before it touches the card."""
+    q = torch.zeros((2, 1600), dtype=torch.int32)
+    r = torch.zeros(64, dtype=torch.int32)
+    one = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"the {kernel} kernel stages none"):
+        ops._launch_cuda(q, r, one, "abs_diff", q, one, one, None, None, 0,
+                         64, 0, False, None, 16, kernel)

@@ -3,9 +3,9 @@
 Runs only where a CUDA device is present (the ``cuda`` marker; the
 fixture skips elsewhere): ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_kernel_cuda.py``. Imports no JAX: the same inputs, made
-from a seed with numpy, go through ``sdtw_cuda`` on the card (the rows
-kernel and the wavefront kernel, forced by ``kernel=``) and on the CPU
-(the plain version of both).
+from a seed with numpy, go through ``sdtw_cuda`` on the card (the rows,
+chain and wavefront kernels, forced by ``kernel=``) and on the CPU (the
+plain version of all three).
 
 Tolerances: int32 bitwise, and float32 bitwise too, because the inputs
 are integer-valued and every sum stays exact below 2**24; one float32
@@ -17,13 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.sdtw import (LAUNCHES, ROWS_MAX_N, reset_launches,
-                                      sdtw_cuda)
+from repro_torch.kernels.sdtw import (CHAIN_MAX_N, LAUNCHES, ROWS_MAX_N,
+                                      reset_launches, sdtw_cuda)
 from repro_torch.kernels.sdtw import ops
 from repro_torch.kernels.sdtw.ops import ROWS_PER_LANE
 
 pytestmark = pytest.mark.cuda
-KERNELS = ["rows", "wavefront"]
+KERNELS = ["rows", "chain", "wavefront"]
 
 SHAPES = [  # (B, N, M, block_q, block_m)
     (1, 1, 1, None, None),
@@ -72,7 +72,7 @@ def test_kernel_equals_plain(b, n, m, bq, bm, dtype, metric, mode, kernel,
     r = rng.integers(-40, 40, m).astype(dtype)
     qlens = rng.integers(1, n + 1, b).astype(np.int32)
     qlens[0] = n
-    if kernel == "rows":                         # the wavefront's tile
+    if kernel != "wavefront":                    # the wavefront's tile
         bm = None
     kwargs = dict(block_q=bq, block_m=bm, return_carry=True, kernel=kernel,
                   return_positions=True, ref_offset=5,
@@ -189,7 +189,7 @@ def test_kernel_block_policy_invariance(kernel, cuda):
     outs = [_flat(sdtw_cuda(q, r, block_q=bq, block_m=bm, return_spans=True,
                             return_carry=True, device=cuda, kernel=kernel))
             for bq, bm in zip([1, 2, 7, 3], tiles)]
-    if kernel == "rows":
+    if kernel != "wavefront":
         outs.append(_flat(sdtw_cuda(q, r, return_spans=True,
                                     return_carry=True, device=cuda,
                                     kernel="wavefront")))
@@ -212,38 +212,46 @@ def test_kernel_counts_launches_and_raises(cuda):
     reset_launches()
     q = torch.zeros((2, 4), dtype=torch.int32)
     r = torch.zeros(16, dtype=torch.int32)
-    for kernel in ("auto", "wavefront"):
+    for kernel in ("auto", "chain", "wavefront"):
         sdtw_cuda(q, r, device=cuda, kernel=kernel)
         sdtw_cuda(q, r, return_spans=True, device=cuda, kernel=kernel)
         sdtw_cuda(q, r, return_lastrow=True, device=cuda, kernel=kernel)
     want = dict.fromkeys(LAUNCHES, 0)      # the "_ban" keys stay at 0
     want.update(rows_plain=1, rows_span=1, rows_lastrow=1,
+                chain_plain=1, chain_span=1, chain_lastrow=1,
                 wavefront_plain=1, wavefront_span=1, wavefront_lastrow=1)
     assert LAUNCHES == want
     with pytest.raises(ValueError, match="up to"):
         sdtw_cuda(torch.zeros((1, ROWS_MAX_N + 1), dtype=torch.int32), r,
                   device=cuda, kernel="rows")
-    with pytest.raises(ValueError, match="block_m"):
-        sdtw_cuda(q, r, block_m=16, device=cuda, kernel="rows")
+    with pytest.raises(ValueError, match="up to"):
+        sdtw_cuda(torch.zeros((1, CHAIN_MAX_N + 1), dtype=torch.int32), r,
+                  device=cuda, kernel="chain")
+    for kernel in ("rows", "chain"):
+        with pytest.raises(ValueError, match="block_m"):
+            sdtw_cuda(q, r, block_m=16, device=cuda, kernel=kernel)
 
 
-@pytest.mark.parametrize("block_q", [None, 2])
+@pytest.mark.parametrize("kernel,block_q", [("auto", None),
+                                            ("wavefront", None),
+                                            ("wavefront", 2)])
 @pytest.mark.parametrize("mode", ["plain", "span_lastrow"])
-def test_long_query_equals_plain(block_q, mode, cuda):
-    """N = 5000 runs on the wavefront kernel ("auto"): one query a block
-    in shared memory, two a block through the global scratch."""
+def test_long_query_equals_plain(kernel, block_q, mode, cuda):
+    """N = 5000 runs on the chain kernel ("auto": 10 warps of 512 rows)
+    and, forced, on the wavefront kernel: one query a block in shared
+    memory, two a block through the global scratch."""
     rng = np.random.default_rng(5000)
     q = rng.integers(-40, 40, (3, 5000)).astype(np.int32)
     r = rng.integers(-40, 40, 700).astype(np.int32)
     reset_launches()
     got, want = _both((q, r, np.array([5000, 4321, 1], np.int32)), dict(
         block_q=block_q, return_carry=True, return_positions=True,
-        return_spans=mode.startswith("span"),
+        return_spans=mode.startswith("span"), kernel=kernel,
         return_lastrow=mode.endswith("lastrow")), cuda)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    assert sum(v for k, v in LAUNCHES.items()
-               if k.startswith("wavefront")) == 1
+    ran = "chain" if kernel == "auto" else kernel
+    assert sum(v for k, v in LAUNCHES.items() if k.startswith(ran)) == 1
 
 
 def test_scratch_launches_in_bounded_slices(monkeypatch, cuda):
@@ -253,7 +261,7 @@ def test_scratch_launches_in_bounded_slices(monkeypatch, cuda):
     q = rng.integers(-40, 40, (5, 5000)).astype(np.int32)
     r = rng.integers(-40, 40, 300).astype(np.int32)
     kw = dict(block_q=2, return_spans=True, return_carry=True,
-              device=cuda)
+              device=cuda, kernel="wavefront")
     whole = _flat(sdtw_cuda(q, r, **kw))
     monkeypatch.setattr(ops, "SCRATCH_LIMIT",
                         ops.smem_bytes(5000, 2, 0, True))
@@ -262,3 +270,112 @@ def test_scratch_launches_in_bounded_slices(monkeypatch, cuda):
     assert LAUNCHES["wavefront_span"] == 3
     for g, w in zip(sliced, whole):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# The chain kernel: one query across W warps of a block, the warps chained
+# through mbarrier-guarded rings in shared memory.
+# ---------------------------------------------------------------------------
+
+#: (B, N, M, block_q): N across 2 to 16 warps, R = 4, 8 and 16, N not a
+#: multiple of 32·R, chunks of 32 columns wrapping the 4-slot ring (M >
+#: 128) and not (M < 32), two queries a block.
+CHAIN_SHAPES = [
+    (5, 129, 300, None),      # R = 4, W = 2, one row in the last warp
+    (4, 1000, 700, None),     # R = 4, W = 8
+    (3, 1537, 200, None),     # R = 4, W = 13
+    (2, 33, 20, 2),           # W = 1, M < one chunk, 2 queries a block
+    (3, 600, 31, 2),          # W = 5, M < one chunk
+    (2, 4000, 250, None),     # R = 8, W = 16: 512 threads
+    (2, CHAIN_MAX_N, 150, None),  # R = 16, W = 16
+]
+
+
+@pytest.mark.parametrize("b,n,m,bq", CHAIN_SHAPES)
+@pytest.mark.parametrize("mode", ["plain", "span", "lastrow",
+                                  "span_lastrow"])
+@pytest.mark.parametrize("ban", [False, True])
+def test_chain_kernel_equals_plain(b, n, m, bq, mode, ban, cuda):
+    """Every variant, with and without the ban, ragged lengths (a last row
+    in every warp position, none at all), masks and a carry in, against
+    the plain version; it counts under ``chain_<variant>[_ban]``."""
+    rng = np.random.default_rng(b * n + m)
+    q = rng.integers(-40, 40, (b, n)).astype(np.int32)
+    r = rng.integers(-40, 40, m).astype(np.int32)
+    qlens = rng.integers(0, n + 2, b).astype(np.int32)
+    qlens[0] = n
+    span = mode.startswith("span")
+    _, carry = sdtw_cuda(q, rng.integers(-40, 40, 40).astype(np.int32),
+                         qlens, return_carry=True, ref_offset=60,
+                         track_start=span, device="cpu")
+    bans = {}
+    if ban:
+        lo = rng.integers(50, 100 + m, b)
+        bans = dict(excl_lo=lo.astype(np.int32),
+                    excl_hi=(lo + rng.integers(0, 80, b)).astype(np.int32))
+    reset_launches()
+    got, want = _both((q, r, qlens), dict(
+        carry=[c.to(cuda) for c in carry], return_carry=True, block_q=bq,
+        return_positions=True, return_spans=span, ref_offset=100,
+        ref_lead=3, ref_len=m - 2, return_lastrow=mode.endswith("lastrow"),
+        kernel="chain", **bans), cuda)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    var = "lastrow" if mode.endswith("lastrow") else mode
+    assert LAUNCHES[f"chain_{var}{'_ban' if ban else ''}"] == 1, LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,metric", [(np.int32, "square_diff"),
+                                          (np.float32, "abs_diff"),
+                                          (np.float32, "square_diff")])
+@pytest.mark.parametrize("mode", ["plain", "span_lastrow"])
+def test_chain_kernel_types_and_metrics(dtype, metric, mode, cuda):
+    rng = np.random.default_rng(17)
+    q = rng.integers(-40, 40, (4, 900)).astype(dtype)
+    r = rng.integers(-40, 40, 400).astype(dtype)
+    got, want = _both((q, r, np.array([900, 899, 256, 1], np.int32),
+                       metric), dict(
+        return_carry=True, return_positions=True, ref_offset=9,
+        return_spans=mode.startswith("span"), kernel="chain",
+        return_lastrow=mode.endswith("lastrow")), cuda)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("track", [False, True])
+def test_chain_carry_chaining_with_bans_across_slices(track, cuda):
+    """Three slices through the carry, with bans across the slice edges,
+    equal one launch over the whole reference."""
+    rng = np.random.default_rng(23)
+    q = torch.from_numpy(rng.integers(-40, 40, (5, 1700)).astype(np.int32))
+    r = torch.from_numpy(rng.integers(-40, 40, 1000).astype(np.int32))
+    lo = np.array([250, 580, 0, 900, 0], np.int32)
+    hi = np.array([350, 620, 310, 1000, 2**31 - 1], np.int32)
+    kw = dict(excl_lo=lo, excl_hi=hi, device=cuda, kernel="chain")
+    whole = sdtw_cuda(q, r, return_spans=track, return_positions=True,
+                      return_carry=True, **kw)
+    carry = None
+    for off in range(0, 1000, 300):
+        _, carry = sdtw_cuda(q, r[off:off + 300], carry=carry,
+                             ref_offset=off, return_carry=True,
+                             track_start=track, **kw)
+    for g, w in zip(_flat(carry), _flat(whole[1])):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.parametrize("mode", ["plain", "span", "span_lastrow"])
+def test_chain_equals_wavefront_at_n_5000(mode, cuda):
+    """The two long-query kernels agree on every query and output at
+    N = 5000 (the chain kernel at R = 16 and 10 warps)."""
+    rng = np.random.default_rng(55)
+    q = torch.from_numpy(rng.integers(-40, 40, (12, 5000)).astype(np.int32))
+    r = torch.from_numpy(rng.integers(-40, 40, 3000).astype(np.int32))
+    qlens = torch.tensor([5000, 4999, 4096, 512, 1, 0] * 2, dtype=torch.int32)
+    outs = [_flat(sdtw_cuda(q, r, qlens, return_carry=True,
+                            return_positions=True, device=cuda,
+                            return_spans=mode.startswith("span"),
+                            return_lastrow=mode.endswith("lastrow"),
+                            kernel=kernel))
+            for kernel in ("chain", "wavefront")]
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)

@@ -217,6 +217,27 @@ def test_matsa_self_join_direct_routes(impl, exclusion, rng):
         assert (got.distances.numpy() == 0).all()
 
 
+@pytest.mark.parametrize("route", ["rowscan", "kernel"])
+def test_matsa_self_join_long_windows_match_reference(route, monkeypatch):
+    """Windows longer than the rows kernel's 1,536 samples (on the card,
+    the chain kernel's with its ban): ``matsa(mode="self_join")`` with
+    1,600-sample windows on 6,000 samples, on the CPU's row scan and
+    through the kernel route as on the card, equals the JAX package's
+    profile bitwise."""
+    import repro_torch.search.search as search_mod
+    rng = np.random.default_rng(1600)
+    series = rng.integers(-50, 50, 6000).astype(np.int32)
+    series[3500:5100] = series[300:1900] + rng.integers(-2, 3, 1600)
+    if route == "kernel":
+        monkeypatch.setattr(search_mod, "_auto_engine", lambda dev: "pallas")
+    kw = dict(mode="self_join", window=1600, stride=1600)
+    got = matsa(series, device="cpu", **kw)
+    want = jmatsa(series, **kw)
+    _same(got.profile, want.profile)
+    np.testing.assert_array_equal(got.distances.numpy(),
+                                  np.asarray(want.distances))
+
+
 def test_search_topk_padding_exact_when_k_exceeds_matches(rng):
     q = rng.integers(-10, 10, (2, 6)).astype(np.int32)
     r = rng.integers(-10, 10, 20).astype(np.int32)

@@ -60,9 +60,11 @@ def level_shifted(rng, m, seg, dtype=np.int32):
 
 @pytest.mark.parametrize("window,m,stride,dtype,key", [
     (24, 3000, 5, np.int32, "rows_lastrow_ban"),
-    (512, 20_000, 512, np.int32, "rows_lastrow_ban"),
+    (512, 20_000, 512, np.int32, "chain_lastrow_ban"),   # 39 windows
     (40, 2500, 7, np.float32, "rows_lastrow_ban"),
-    (1600, 9000, 800, np.int32, "wavefront_lastrow_ban"),
+    (1600, 9000, 800, np.int32, "chain_lastrow_ban"),
+    (2048, 14_000, 1024, np.int32, "chain_lastrow_ban"),
+    (8400, 20_000, 4000, np.int32, "wavefront_lastrow_ban"),
 ])
 def test_self_join_on_the_card_equals_cpu(window, m, stride, dtype, key,
                                           cuda):
@@ -114,7 +116,7 @@ def test_pruned_profile_on_the_card_equals_cpu(cuda):
 
 
 @pytest.mark.parametrize("window,key", [(16, "rows_lastrow_ban"),
-                                        (1600, "wavefront_lastrow_ban")])
+                                        (1600, "chain_lastrow_ban")])
 def test_stream_profile_on_the_card_equals_cpu(window, key, cuda):
     """Ragged feeding with a mid-stream flush: each tile step is one
     kernel launch with the ban; the profile is the exact batch profile's
@@ -159,7 +161,7 @@ def test_engine_exclusion_takes_the_kernel(spans, n, cuda):
     q = np.stack([r[s:s + n] for s in starts])
     lo = np.maximum(starts - n // 2, 0)
     hi = starts + n + n // 2
-    kernel = "rows" if n <= 1536 else "wavefront"
+    kernel = "rows" if n <= 1536 else "chain"
     reset_launches()
     got = engine.sdtw(q, r, excl_lo=lo, excl_hi=hi, return_spans=spans,
                       return_positions=not spans, device=cuda)
@@ -171,6 +173,31 @@ def test_engine_exclusion_takes_the_kernel(spans, n, cuda):
     with pytest.raises(ValueError, match="exclusion"):
         engine.sdtw(q, r, excl_lo=lo, excl_hi=hi, impl="pallas",
                     device=cuda)
+
+
+@pytest.mark.parametrize("n,m", [(12, 312), (1600, 1900), (1600, 4000),
+                                 (8400, 8700)])
+def test_fully_banned_query_ends_at_column_0_on_the_card(n, m, cuda):
+    """A query banned on every column: distance BIG and the end and start
+    of the route the CPU (and the reference) takes for the shape — 0 on
+    the row scan (M >= 2N), -1 on the wavefront schedule (M < 2N) — on
+    each of the three kernels ``"auto"`` takes."""
+    rng = np.random.default_rng(n + m)
+    r = rng.integers(-50, 50, m).astype(np.int32)
+    q = np.stack([r[:n], r[100:100 + n]])
+    lo = np.array([0, 0], np.int32)
+    hi = np.array([2**31 - 1, 50], np.int32)
+    kernel = "rows" if n <= 1536 else "chain" if n <= 8192 else "wavefront"
+    reset_launches()
+    got = engine.sdtw(q, r, excl_lo=lo, excl_hi=hi, return_spans=True,
+                      device=cuda)
+    _only(f"{kernel}_span_ban")
+    want = engine.sdtw(q, r, excl_lo=lo, excl_hi=hi, return_spans=True,
+                       device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    end = 0 if m >= 2 * n else -1
+    assert int(got[0][0]) == 2**29 and int(got[1][0]) == int(got[2][0]) == end
 
 
 def test_ragged_list_takes_the_kernel_without_a_ban(cuda):

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.traceback import check_path, path_cost
-from repro_torch.kernels.sdtw import LAUNCHES, reset_launches
+from repro_torch.kernels.sdtw import LAUNCHES, choose_kernel, reset_launches
+from repro_torch.kernels.sdtw.ops import sm_count
 from repro_torch.search import search_topk
 
 pytestmark = pytest.mark.cuda
@@ -74,7 +75,8 @@ def test_search_kernel_route_equals_plain_route(case, cuda):
     reset_launches()
     got = search_topk(q, ref, engine_impl="pallas", **kw)
     torch.cuda.synchronize()
-    kernel = "rows" if n <= 1536 else "wavefront"
+    kernel = choose_kernel(n, "auto", nq, sm_count(0))
+    assert kernel == ("rows" if n <= 120 else "chain")
     assert LAUNCHES[f"{kernel}_lastrow"] >= 1, LAUNCHES
     assert sum(LAUNCHES.values()) == LAUNCHES[f"{kernel}_lastrow"]
     reset_launches()
@@ -126,7 +128,8 @@ def test_align_on_the_card_equals_cpu(n, cuda):
     q[0] = ref[100:100 + n]
     reset_launches()
     got = engine.align(q, ref, device=cuda)
-    assert LAUNCHES["rows_span"] >= 1, LAUNCHES
+    kernel = "rows" if n <= 128 else "chain"     # 4 queries: "auto" splits
+    assert LAUNCHES[f"{kernel}_span"] >= 1, LAUNCHES
     want = engine.align(q, ref, device="cpu")
     for i, (g, w) in enumerate(zip(got, want)):
         assert (g.distance, g.start, g.end) == (w.distance, w.start, w.end)

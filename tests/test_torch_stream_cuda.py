@@ -65,7 +65,7 @@ MODES = [
 
 
 #: Every mode at N = 12 and 120 (rows kernel); three at N = 1600 (the
-#: wavefront kernel), where the plain route's 1600-row scan is slow.
+#: chain kernel), where the plain route's 1600-row scan is slow.
 CASES = ([(n, kw) for n in (12, 120) for kw in MODES]
          + [(1600, MODES[i]) for i in (0, 2, 6)])
 
@@ -88,7 +88,7 @@ def test_stream_kernel_route_equals_plain_route(n, kw, cuda):
     torch.cuda.synchronize()
     assert sum(LAUNCHES.values()) >= 1, LAUNCHES
     if kw.get("top_k") or kw.get("alert_threshold") is not None:
-        kernel = "rows" if n <= 1536 else "wavefront"
+        kernel = "rows" if n <= 1536 else "chain"
         assert LAUNCHES[f"{kernel}_lastrow"] >= 1, LAUNCHES
     reset_launches()
     want = _feed(engine.stream(q, chunk=chunk, impl="rowscan", device=cuda,
@@ -102,21 +102,25 @@ def test_stream_kernel_route_equals_plain_route(n, kw, cuda):
         _same(got.results(), want.results())
 
 
-def test_stream_auto_snapshot_and_block_args_on_the_card(cuda):
+@pytest.mark.parametrize("n,kernel,block_q", [(40, "rows", 2),
+                                              (1600, "chain", 1)])
+def test_stream_auto_snapshot_and_block_args_on_the_card(n, kernel, block_q,
+                                                         cuda):
     """``impl='auto'`` on the card is the kernel; a snapshot restores on
     the CPU (the plain version) and back on the card and continues
-    bitwise; ``block_q``/``block_m`` are accepted on a rows-kernel
-    session (``block_m`` is the wavefront's tile and is not passed to a
-    rows launch)."""
+    bitwise; ``block_q``/``block_m`` are accepted on a rows- and on a
+    chain-kernel session (``block_m`` is the wavefront's tile and is not
+    passed to their launches)."""
     rng = np.random.default_rng(5)
     r = rng.integers(-60, 60, 5000).astype(np.int32)
-    q = rng.integers(-60, 60, (4, 40)).astype(np.int32)
-    kw = dict(chunk=512, top_k=3, return_spans=True, block_q=2, block_m=64)
+    q = rng.integers(-60, 60, (4, n)).astype(np.int32)
+    kw = dict(chunk=512, top_k=3, return_spans=True, block_q=block_q,
+              block_m=64)
     s = engine.stream(q, device=cuda, **kw)
     assert s.impl == "pallas"
     reset_launches()
     s.feed(r[:2100])
-    assert LAUNCHES["rows_lastrow"] == 4
+    assert LAUNCHES[f"{kernel}_lastrow"] == 4
     on_cpu = StreamSession.restore(s.snapshot(), device="cpu")
     back = StreamSession.restore(on_cpu.snapshot(), device=cuda)
     for sess in (s, on_cpu, back):
