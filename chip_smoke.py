@@ -12,7 +12,9 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
   2. build every kernel from ``src/repro_torch/kernels/*/csrc`` with nvcc,
      all sources in parallel (timed; ptxas registers and spills logged);
   3. the three kernels (rows, chain, wavefront), every variant, against
-     their plain PyTorch version on the card: int32 and float32, both
+     their plain PyTorch version on the card (one plain run, with the
+     start lane and the last row, holds every variant of an
+     integer-valued input): int32 and float32, both
      metrics, plain / span / last-row, variable query lengths, R not
      dividing N, ``ref_lead``/``ref_len`` masks, carry chaining, block
      policy invariance, N up to 1536, and N = 5000 on the chain kernel and
@@ -86,9 +88,25 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      distances; ``engine.sdtw(return_spans=True)`` of 64 queries of
      4,096 against the whole series on the chain kernel and on the
      wavefront, timed, bitwise equal;
+ 16. the autotuner: the shipped ``h100.json``; at each main shape (Human,
+     ECG-cut, the self-join's batches of 256 windows of 512 and 2,048
+     against a slice of 8,192, 64 × 4,096, the Table V shapes cut as in
+     phase 8) the ``tune='off'`` and ``tune='model'`` launches, each
+     timed, the model's within 5 % of the hand-set one or faster, the
+     answers bitwise equal under off/model/measure; ``tune='measure'`` on
+     a small bucket lands in the process table;
+ 17. the serving tier: a warmed ``Router`` serves Human at full width
+     (64 requests of 2,048 from 8 client threads) in fewer dispatches than
+     requests, every answer bitwise the client's offline call on the
+     card, with latency percentiles and the batcher's host share of one
+     window; 8 ``search_topk`` requests of ECG-cut queries in one dispatch
+     and a stream fed through ``open_stream``/``feed``, each bitwise the
+     offline call; ``python -m repro_torch.serve``;
      then the JSON lines.
 
-Every path runs on ``kernel="auto"``'s choice: the rows kernel for
+Every path runs on ``kernel="auto"``'s choice under the engine's default
+``tune='model'`` (the shipped tuning table, else the cost model, which
+keeps the hand-set launch at every shape checked below): the rows kernel for
 Human's 131,072 queries and every batch of at least 12 queries an SM
 (phases 4, 5, 9, 11, 12), the chain kernel for smaller batches of
 longer queries (ECG-cut's 256 in phases 6 and 9-11, the self-join's
@@ -344,24 +362,27 @@ class Harness:
         return len(configs)
 
     def check_modes(self, name, q, r, qlens=None, metric="abs_diff",
-                    modes=(), kernel="chain", **kw):
-        """Every (track, lastrow) variant of ``kernel`` against one run of
-        the plain version with the start lane and the last row, whose
-        outputs hold every variant's (integer-valued inputs: the values do
-        not depend on the start lane). Returns the number of
-        comparisons."""
+                    modes=(), kernel="chain", configs=None, **kw):
+        """Every (track, lastrow) variant of every kernel configuration
+        (``(kernel, launch kwargs)`` pairs; default ``kernel`` with its
+        policy) against one run of the plain version with the start lane
+        and the last row, whose outputs hold every variant's
+        (integer-valued inputs: the values do not depend on the start
+        lane). Returns the number of comparisons."""
         want = self.plain_raw(q, r, qlens, metric, True, True, **kw)
         ban = kw.get("excl_lo") is not None
-        for track, lastrow in modes:
-            got = self.kernel(q, r, qlens, metric, track, lastrow,
-                              kernel=kernel, **kw)
-            self.record(self.ops.variant(track, lastrow, kernel, ban),
-                        self.compare(
-                            f"{kernel} {name} track={track} "
-                            f"lastrow={lastrow}", got,
-                            [None if g is None else w
-                             for g, w in zip(got, want)]))
-        return len(modes)
+        configs = configs or [(kernel, {})]
+        for kern, launch in configs:
+            for track, lastrow in modes:
+                got = self.kernel(q, r, qlens, metric, track, lastrow,
+                                  kernel=kern, **launch, **kw)
+                self.record(self.ops.variant(track, lastrow, kern, ban),
+                            self.compare(
+                                f"{kern} {launch} {name} track={track} "
+                                f"lastrow={lastrow}", got,
+                                [None if g is None else w
+                                 for g, w in zip(got, want)]))
+        return len(modes) * len(configs)
 
     def record(self, var, worst):
         self.err[var] = max(self.err[var], worst)
@@ -369,27 +390,26 @@ class Harness:
 
 def phase_kernels(h, np, rng):
     """Phase 3: every variant of the three kernels against the plain
-    version, which runs once per input."""
+    version, which runs once per input (integer-valued inputs: one run
+    with the start lane and the last row holds every variant's outputs)."""
     n_checks = 0
     shapes = [(3, 5, 17), (16, 120, 1000), (5, 200, 900), (4, 512, 3000)]
     modes = [(False, False), (True, False), (False, True), (True, True)]
+    every = [(k, {}) for k in h.ops.KERNELS]
     for dtype in (np.int32, np.float32):
         for metric in ("abs_diff", "square_diff"):
             for b, n, m in shapes:
-                for track, lastrow in modes:
-                    q = rng.integers(-60, 60, (b, n)).astype(dtype)
-                    r = rng.integers(-60, 60, m).astype(dtype)
-                    qlens = rng.integers(1, n + 1, b).astype(np.int32)
-                    qlens[0] = n
-                    n_checks += h.check(
-                        f"{dtype.__name__} {metric} {(b, n, m)} "
-                        f"track={track} lastrow={lastrow}", q, r, qlens,
-                        metric, track, lastrow, ref_offset=7)
+                q = rng.integers(-60, 60, (b, n)).astype(dtype)
+                r = rng.integers(-60, 60, m).astype(dtype)
+                qlens = rng.integers(1, n + 1, b).astype(np.int32)
+                qlens[0] = n
+                n_checks += h.check_modes(
+                    f"{dtype.__name__} {metric} {(b, n, m)}", q, r, qlens,
+                    metric, modes, configs=every, ref_offset=7)
     q = rng.integers(-60, 60, (2, 1536)).astype(np.int32)
     r = rng.integers(-60, 60, 2500).astype(np.int32)
-    for track, lastrow in modes:
-        n_checks += h.check(f"N=1536 track={track} lastrow={lastrow}", q, r,
-                            None, "abs_diff", track, lastrow)
+    n_checks += h.check_modes("N=1536", q, r, None, "abs_diff", modes,
+                              configs=every)
     # The rows kernel at every R (the policy picks R at N = 32·R - 3, which
     # R does not divide for R > 1), with a query ending on a lane's last
     # slot, one elsewhere and one with no last row.
@@ -397,29 +417,24 @@ def phase_kernels(h, np, rng):
         n = 32 * rows - 3
         q = rng.integers(-60, 60, (4, n)).astype(np.int32)
         r = rng.integers(-60, 60, 700).astype(np.int32)
-        for track, lastrow in modes:
-            n_checks += h.check(
-                f"R={rows} N={n} track={track} lastrow={lastrow}", q, r,
-                np.array([n, rows, n - 1, 0], np.int32), "abs_diff", track,
-                lastrow, configs=[("rows", {})])
+        n_checks += h.check_modes(
+            f"R={rows} N={n}", q, r, np.array([n, rows, n - 1, 0], np.int32),
+            "abs_diff", modes, kernel="rows")
     # N = 5000 on the wavefront kernel (shared memory, then global
     # scratch) and on the chain kernel (10 warps of R = 16).
     q = rng.integers(-60, 60, (3, 5000)).astype(np.int32)
     r = rng.integers(-60, 60, 600).astype(np.int32)
-    for track, lastrow in modes:
-        n_checks += h.check(
-            f"N=5000 track={track} lastrow={lastrow}", q, r,
-            np.array([5000, 4321, 1], np.int32), "abs_diff", track, lastrow,
-            configs=[("wavefront", {}), ("wavefront", dict(block_q=2)),
-                     ("chain", {})])
+    n_checks += h.check_modes(
+        "N=5000", q, r, np.array([5000, 4321, 1], np.int32), "abs_diff",
+        modes, configs=[("wavefront", {}), ("wavefront", dict(block_q=2)),
+                        ("chain", {})])
     q = rng.integers(-60, 60, (6, 40)).astype(np.int32)
     r = rng.integers(-60, 60, 900).astype(np.int32)
     for lead, rlen in ((0, 500), (13, 900), (30, 30), (0, 0), (100, 640)):
-        for track, lastrow in modes:
-            n_checks += h.check(
-                f"lead={lead} len={rlen}", q, r,
-                np.array([40, 1, 17, 33, 2, 40], np.int32), "abs_diff",
-                track, lastrow, ref_offset=1000, ref_lead=lead, ref_len=rlen)
+        n_checks += h.check_modes(
+            f"lead={lead} len={rlen}", q, r,
+            np.array([40, 1, 17, 33, 2, 40], np.int32), "abs_diff", modes,
+            configs=every, ref_offset=1000, ref_lead=lead, ref_len=rlen)
     qf = rng.normal(0, 50, (8, 64)).astype(np.float32)
     rf = rng.normal(0, 50, 2000).astype(np.float32)
     n_checks += h.check("float32 real-valued (rtol=1e-5)", qf, rf,
@@ -537,8 +552,9 @@ def bans_for(np, rng, b: int, lo_col: int, hi_col: int):
 
 
 def phase_bans(h, np, rng):
-    """Phase 3 (the ban): every variant of both kernels with per-query
-    column bans against the plain version with the same bans."""
+    """Phase 3 (the ban): every variant of the three kernels with
+    per-query column bans against the plain version with the same bans
+    (one plain run per integer-valued input holds every variant)."""
     n_checks = 0
     modes = [(False, False), (True, False), (False, True), (True, True)]
     for dtype, metric in ((np.int32, "abs_diff"), (np.int32, "square_diff"),
@@ -551,12 +567,11 @@ def phase_bans(h, np, rng):
             qlens = rng.integers(1, n + 1, b).astype(np.int32)
             qlens[:2] = n
             lo, hi = bans_for(np, rng, b, off, off + m)
-            for track, lastrow in modes:
-                n_checks += h.check(
-                    f"ban {dtype.__name__} {metric} {(b, n, m)} offset="
-                    f"{off} track={track} lastrow={lastrow}", q, r, qlens,
-                    metric, track, lastrow, ref_offset=off, ref_lead=lead,
-                    ref_len=rlen, excl_lo=lo, excl_hi=hi)
+            n_checks += h.check_modes(
+                f"ban {dtype.__name__} {metric} {(b, n, m)} offset={off}",
+                q, r, qlens, metric, modes,
+                configs=[(k, {}) for k in h.ops.KERNELS], ref_offset=off,
+                ref_lead=lead, ref_len=rlen, excl_lo=lo, excl_hi=hi)
     # N = 1536 (the rows kernel's last R) and N = 5000 (the wavefront in
     # shared memory and in its global scratch), K1 and K3 with the start
     # lane (every line of the ban is in both).
@@ -1401,6 +1416,260 @@ def phase_align(torch, np, ops, kpkg, human, ecg, dev):
     return launches
 
 
+def table_v_cut(w: dict):
+    """A Table V shape cut to 4,224 queries (32 warps on each of 132 SMs)
+    and a reference of at most 8e10 cells (at least 20 N samples, and at
+    most 6.4e8 last-row entries): ``(queries, N, M)``."""
+    n_, b_ = w["query_size"], min(w["num_queries"], 4224)
+    m_ = min(w["ref_size"], max(20 * n_, int(8e10) // (b_ * n_)),
+             int(6.4e8) // b_)
+    return b_, n_, m_
+
+
+def phase_tune(torch, np, ops, shapes, sms, dev):
+    """Phase 16: the autotuner on the card. For each main shape (``name:
+    (queries, reference, variant, bans)``): the ``tune='off'`` launch (the
+    hand-set policy) and the ``tune='model'`` one (the shipped
+    ``h100.json``, else the cost model), each timed with CUDA events; the
+    answers bitwise equal under ``'off'``, ``'model'`` and ``'measure'``;
+    the model's launch within 5 % of the hand-set one's time or faster.
+    Then ``tune='measure'`` on a small bucket, whose entry must land in
+    the process table. A decision's time is its launch's, made
+    explicitly (one timing when both decisions launch the same, else each
+    twice in turns). Returns ``{name: {mode: (label, source, ms)}}``."""
+    from repro_torch.core import engine
+    from repro_torch.tune import bucket_key, default_table
+    from repro_torch.tune.cost import launch_label
+    table = default_table("h100")
+    log(f"phase 16: h100.json, {len(table)} entries: {table.provenance}")
+    out = {}
+    for name, (q, r, variant, bans) in shapes.items():
+        b, n = q.shape
+        m = r.shape[0]
+        kw = dict(return_spans=variant != "plain", return_positions=True,
+                  return_lastrow=variant == "lastrow", device=dev)
+        if bans is not None:
+            kw.update(excl_lo=bans[0], excl_hi=bans[1])
+        cfgs, answers = {}, {}
+        for mode in ("off", "model", "measure"):
+            cfgs[mode] = ops.tuned_launch(b, n, m, sms=sms, variant=variant,
+                                          ban=bans is not None, tune=mode)
+            answers[mode] = _flat(ops.sdtw_cuda(q, r, tune=mode, **kw))
+
+        def launch(cfg):
+            return ops.sdtw_cuda(
+                q, r, tune="off", kernel=cfg["kernel"], block_q=cfg["block_q"],
+                block_m=cfg["block_m"],
+                rows=None if cfg["kernel"] == "wavefront" else cfg["rows"],
+                **kw)
+        # Each decision's launch timed as an explicit launch (the same
+        # host path for both); one launch is timed once, two in turns.
+        reps = 2 if m > 1e6 else 3
+        if cfgs["off"][0] == cfgs["model"][0]:
+            t = cuda_ms(lambda: launch(cfgs["off"][0]), reps=reps)
+            ms = {"off": t, "model": t}
+        else:
+            runs = {"off": [], "model": []}
+            for order in (("off", "model"), ("model", "off")):
+                for mode in order:
+                    runs[mode].append(cuda_ms(
+                        lambda: launch(cfgs[mode][0]), reps=reps))
+            ms = {mode: statistics.mean(v) for mode, v in runs.items()}
+        res = {mode: (launch_label(cfgs[mode][0]),
+                      cfgs[mode][1].source if cfgs[mode][1] else "legacy",
+                      ms[mode]) for mode in ("off", "model")}
+        for mode in ("model", "measure"):
+            for g, w in zip(answers[mode], answers["off"]):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{name}: tune={mode} answers != "
+                                         f"tune='off'")
+        del answers
+        (lo, so, t_off), (lm, sm, t_mod) = res["off"], res["model"]
+        log(f"phase 16: {name} ({b}x{n} vs {m}, {variant}"
+            f"{' + ban' if bans is not None else ''}): off {lo} ({so}) "
+            f"{t_off:.3f} ms; model {lm} ({sm}) {t_mod:.3f} ms; "
+            f"model/off {t_mod / t_off:.3f}; answers bitwise equal under "
+            f"off/model/measure")
+        if t_mod > 1.05 * t_off:
+            raise AssertionError(f"{name}: tune='model' {t_mod:.3f} ms is "
+                                 f"over 5 % slower than 'off' {t_off:.3f}")
+        out[name] = res
+    rng = np.random.default_rng(16)
+    q = torch.as_tensor(rng.integers(-100, 100, (64, 128)).astype(np.int32),
+                        device=dev)
+    r = torch.as_tensor(rng.integers(-100, 100, 2048).astype(np.int32),
+                        device=dev)
+    key = bucket_key("h100", "abs_diff", "int32", 64, 128, 2048, "plain")
+    if table.get(key) is not None:
+        raise AssertionError(f"{key} is in the shipped table already")
+    got = engine.sdtw(q, r, tune="measure", device=dev)
+    entry = table.get(key)
+    if entry is None or entry.source != "measured":
+        raise AssertionError(f"tune='measure' left no entry for {key}")
+    if not torch.equal(got, engine.sdtw(q, r, tune="off", device=dev)):
+        raise AssertionError("tune='measure' answers != tune='off'")
+    log(f"phase 16: tune='measure' on {key}: "
+        f"{launch_label(entry.to_json())} {entry.score_us:.1f} us, in the "
+        f"process table; answers == tune='off'")
+    return out
+
+
+def phase_serve(torch, np, ops, human, ecg, dev):
+    """Phase 17: the serving tier on the card. A warmed ``Router`` serves
+    Human at full width — 131,072 queries of 120 against 7,997 as 64
+    requests of 2,048 from 8 closed-loop client threads — with fewer
+    dispatches than requests, every answer bitwise the client's own
+    offline ``engine.sdtw`` on the card; one window replayed by hand for
+    the batcher's host share; 8 ``search_topk(k=3)`` requests of 32
+    ECG-cut queries coalesced into one dispatch, bitwise the offline
+    batched search; one stream feed through ``open_stream``/``feed``,
+    bitwise an ``engine.stream`` session fed the same pieces; and a short
+    ``python -m repro_torch.serve``. Returns the served window's launches
+    and its numbers."""
+    import concurrent.futures
+    import threading
+
+    from repro_torch.core import engine
+    from repro_torch.core.engine import pad_ragged_bucket
+    from repro_torch.search import search_topk
+    from repro_torch.serve import Router, RouterConfig, batcher
+    from repro_torch.serve.telemetry import RequestTrace
+    queries, reference = human
+    per, n_req, clients = 2048, 64, 8
+    reqs = [queries[i * per:(i + 1) * per] for i in range(n_req)]
+    window = clients * per
+    results = [None] * n_req
+    with Router(RouterConfig(window_ms=5.0, window_full_queries=window,
+                             max_queue=n_req)) as router:
+        t0 = time.time()
+        router.warmup(queries=queries[:window], reference=reference)
+        warm_s = time.time() - t0
+
+        def client(c):
+            for i in range(c, n_req, clients):
+                results[i] = router.sdtw(reqs[i], reference)
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        ops.reset_launches()
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        serve_s = time.time() - t0
+        launches = dict(ops.LAUNCHES)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("serve: a client thread did not finish")
+        st = router.stats()
+    if st.completed != n_req or st.errors or st.dispatches >= n_req:
+        raise AssertionError(f"serve: {st.completed} completed, "
+                             f"{st.errors} errors, {st.dispatches} "
+                             f"dispatches for {n_req} requests")
+    for i, got in enumerate(results):
+        if not torch.equal(got, engine.sdtw(reqs[i], reference, device=dev)):
+            raise AssertionError(f"serve: request {i} != its offline call")
+    log(f"phase 17: served Human {queries.shape[0]}x{queries.shape[1]} vs "
+        f"{len(reference)} as {n_req} requests of {per} from {clients} "
+        f"threads in {serve_s:.3f} s (warm-up {warm_s:.3f} s): "
+        f"{st.dispatches} dispatches for {st.completed} requests "
+        f"(mean {st.mean_batch_requests:.2f} requests, "
+        f"{st.mean_batch_queries:.0f} queries a dispatch), latency p50 "
+        f"{st.p50_latency_us / 1e3:.3f} ms p99 {st.p99_latency_us / 1e3:.3f}"
+        f" ms, queue p50 {st.p50_queue_us / 1e3:.3f} ms; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; every answer == "
+        f"the client's offline engine.sdtw on the card")
+
+    # One full window by hand: the batcher's host work against the
+    # kernel's time on the merged bucket.
+    def pending(i):
+        return batcher.Pending(
+            request=engine.SdtwRequest(queries=reqs[i], reference=reference),
+            future=concurrent.futures.Future(),
+            trace=RequestTrace(op="sdtw", nq=per))
+    split = {}
+    for _ in range(2):
+        pend = [pending(i) for i in range(clients)]
+        t0 = time.perf_counter()
+        groups = batcher.group_window(pend)
+        t1 = time.perf_counter()
+        batcher.execute_group(groups[0])
+        t2 = time.perf_counter()
+        split = {"group_ms": (t1 - t0) * 1e3, "execute_ms": (t2 - t1) * 1e3}
+    merged = [e for p in groups[0] for e in p.entries]
+    padded, qlens = pad_ragged_bucket(merged, list(range(len(merged))),
+                                      128)
+    pq, pl = (torch.as_tensor(padded, device=dev),
+              torch.as_tensor(qlens, device=dev))
+    rt = torch.as_tensor(reference, device=dev)
+    kernel_ms = cuda_ms(lambda: ops.sdtw_cuda(pq, rt, pl, tune="model",
+                                              device=dev))
+    wall = split["group_ms"] + split["execute_ms"]
+    out = {"serve_s": serve_s, "dispatches": st.dispatches,
+           "requests": st.completed, "p50_ms": st.p50_latency_us / 1e3,
+           "p99_ms": st.p99_latency_us / 1e3, "window_ms": wall,
+           "kernel_ms": kernel_ms, "host_share": 1 - kernel_ms / wall}
+    log(f"phase 17: one window of {clients} requests ({len(merged)} "
+        f"queries) by hand: group {split['group_ms']:.3f} ms + execute "
+        f"{split['execute_ms']:.3f} ms = {wall:.3f} ms; kernel on the "
+        f"merged bucket {kernel_ms:.3f} ms; host share "
+        f"{out['host_share']:.3f}")
+
+    # Search and a stream, ECG-cut.
+    q_e, ref_e = ecg
+    sq = [q_e[i * 32:(i + 1) * 32] for i in range(8)]
+    with Router(RouterConfig(auto_dispatch=False)) as router:
+        futs = [router.submit(queries=q, reference=ref_e, op="search_topk",
+                              top_k=3, ref_key="ecg") for q in sq]
+        router.drain()
+        if router.stats().dispatches != 1:
+            raise AssertionError("serve: search requests did not coalesce")
+        want = search_topk([row for q in sq for row in q], ref_e, 3,
+                           ref_key="ecg", cache=router.cache, device=dev)
+        for f in ("distances", "positions", "starts"):
+            got = torch.cat([getattr(x.result(), f) for x in futs])
+            if not torch.equal(got, getattr(want, f)):
+                raise AssertionError(f"serve: search {f} != offline")
+        feed = ref_e[:262144]
+        router.open_stream("ecg", "t0", queries=q_e[:16], top_k=3,
+                           return_spans=True)
+        session = engine.stream(q_e[:16], top_k=3, return_spans=True,
+                                device=dev)
+        for i in range(0, len(feed), 65536):
+            router.feed("ecg", feed[i:i + 65536])
+            session.feed(feed[i:i + 65536])
+        served = router.sessions.finalize("ecg")["t0"]
+        offline = session.results()
+        for f in ("distances", "positions", "starts"):
+            g, w = getattr(served, f), getattr(offline, f)
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                raise AssertionError(f"serve: stream {f} != offline")
+    log("phase 17: 8 search_topk(k=3) requests of 32 ECG-cut queries in 1 "
+        "dispatch == the offline batched search; a stream of 16 ECG-cut "
+        "queries fed 262,144 samples through open_stream/feed == an "
+        "engine.stream session fed the same pieces")
+
+    env = dict(os.environ, PYTHONPATH=str(pathlib.Path(__file__).resolve()
+                                          .parent / "src"))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve", "--clients", "4",
+         "--requests", "4", "--nq", "64", "--qlen", "128", "--reflen",
+         "8192"], capture_output=True, text=True, timeout=600, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.serve failed: "
+                             f"{proc.stderr[-2000:]}")
+    snap = json.loads(proc.stdout)
+    if snap["completed"] != 16 or snap["device"] != \
+            torch.cuda.get_device_name(0):
+        raise AssertionError(f"python -m repro_torch.serve: {snap}")
+    log(f"phase 17: python -m repro_torch.serve: {snap['completed']} "
+        f"requests in {snap['dispatches']} dispatches on {snap['device']}, "
+        f"p50 {snap['p50_latency_us'] / 1e3:.3f} ms "
+        f"({time.time() - t0:.1f} s with start-up)")
+    return launches, out
+
+
 def ptxas_summary(log_text: str):
     """``{kernel name: (registers, spill stores, spill loads)}`` from
     nvcc's ``-Xptxas -v`` output."""
@@ -1737,10 +2006,7 @@ def main() -> int:
     # samples, and at most 6.4e8 last-row entries): which kernel is the
     # faster in each variant (``choose_kernel``); the three agree bitwise.
     for shape in ("Song", "Penguin", "Seismology", "Power"):
-        w = load_real_workload_shapes()[shape]
-        n_, b_ = w["query_size"], min(w["num_queries"], 4224)
-        m_ = min(w["ref_size"], max(20 * n_, int(8e10) // (b_ * n_)),
-                 int(6.4e8) // b_)
+        b_, n_, m_ = table_v_cut(load_real_workload_shapes()[shape])
         qq = torch.as_tensor(synthetic_timeseries(rng, b_ * n_).reshape(
             b_, n_), device=dev)
         rr = torch.as_tensor(synthetic_timeseries(rng, m_), device=dev)
@@ -1801,6 +2067,36 @@ def main() -> int:
     long_paths, long_out = phase_long_windows(torch, np, ops, kpkg, h, ref_e,
                                               int32_rate, dev)
     path_by.update(long_paths)
+
+    # Phases 16-17: the autotuner and the serving tier.
+    from repro_torch.core.sdtw import self_join_exclusion
+    tune_shapes = {"Human": (qt, rt, "plain", None),
+                   "ECG-cut": (qe, re_, "span", None)}
+    for w in (512, 2048):
+        s_w = np.arange(256) * w
+        lo_w, hi_w = self_join_exclusion(s_w, w)
+        tune_shapes[f"self-join {w} batch"] = (
+            torch.as_tensor(ref_e[s_w[:, None] + np.arange(w)], device=dev),
+            re_[:8192], "lastrow", (torch.as_tensor(lo_w, device=dev),
+                                    torch.as_tensor(hi_w, device=dev)))
+    s64 = np.random.default_rng(4096).choice(me - 4096, 64, replace=False)
+    tune_shapes["64 x 4096"] = (
+        torch.as_tensor(ref_e[s64[:, None] + np.arange(4096)], device=dev),
+        re_, "span", None)
+    for shape, variants_ in (("Song", ("plain", "span", "lastrow")),
+                             ("Penguin", ("plain",)),
+                             ("Seismology", ("plain",)),
+                             ("Power", ("plain", "span", "lastrow"))):
+        b_, n_, m_ = table_v_cut(load_real_workload_shapes()[shape])
+        qq = torch.as_tensor(synthetic_timeseries(rng, b_ * n_).reshape(
+            b_, n_), device=dev)
+        rr = torch.as_tensor(synthetic_timeseries(rng, m_), device=dev)
+        for var in variants_:
+            tune_shapes[f"{shape} cut {var}"] = (qq, rr, var, None)
+    tune_out = phase_tune(torch, np, ops, tune_shapes, n_sm, dev)
+    del tune_shapes
+    path_by["serve_human"], serve_out = phase_serve(
+        torch, np, ops, (queries, reference), (q_e, ref_e), dev)
     path_by = {"matsa_human": human_launches, "topk_fold_human":
                topk_launches, "sdtw_spans_ecg": ecg_launches,
                "long_queries": long_launches, **path_by}
@@ -1836,6 +2132,12 @@ def main() -> int:
     for case, ms in sweep.items():
         log(f"chain policy {case}: " + ", ".join(
             f"{c} {t:.3f} ms" for c, t in ms.items()))
+    for name, res in tune_out.items():
+        log(f"tune {name}: " + "; ".join(
+            f"{mode} {label} ({src}) {ms:.3f} ms"
+            for mode, (label, src, ms) in res.items()))
+    log("serve summary: " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                      serve_out.items()))
     batch, spans = long_out["batch_ms"], long_out["spans_ms"]
     log(f"phase 15 summary: self-join window 2048 "
         f"{long_out['self_join_s']:.3f} s wall (kernel "

@@ -15,8 +15,8 @@ one call:
     boundary-column carry (MATSA's inter-subarray pass gates, §III-B).
   * ``sharded`` — not ported yet (ROADMAP item 12).
 
-Dispatch rules (``impl="auto"``), the reference's ``tune='off'`` rules
-with rule 3 read for the card:
+Dispatch rules (``impl="auto"``), the reference's rules with rule 3
+read for the card:
 
   1. ``mesh`` given (or ``impl="sharded"``)        → sharded driver.
   2. ``top_k`` or ``chunk`` given                  → chunked streaming.
@@ -28,6 +28,16 @@ with rule 3 read for the card:
   4. M ≥ ``CHUNK_THRESHOLD``                       → chunked streaming.
   5. M < 2·N                                       → wavefront.
   6. otherwise                                     → rowscan.
+
+Rules 1-4 are structural; rules 5-6 are the ``tune='off'`` heuristics.
+Under the default ``tune='model'`` the in-core choice on the CPU comes
+from the ``repro_torch.tune`` ranking (or a tuning-table hit) with the
+reference's CPU constants, so it matches the JAX package's; on the card
+rule 3 stays structural and the oracle decides the kernel's launch —
+kernel, R, warps, queries a block, tile (``ops.tuned_launch``); the
+chunked path takes its ``chunk`` from the same oracle (on the CPU).
+``sdtw(..., explain=True)`` returns the ``repro_torch.tune
+.DispatchDecision`` of what ran and why.
 
 ``impl='pallas'`` with ``chunk=`` streams the reference through the
 kernel's chunk carry: references up to ``PALLAS_FUSED_MAX`` samples run
@@ -71,10 +81,12 @@ def choose_impl_explained(nq: int, n: int, m: int, *,
                           metric: str = "abs_diff",
                           dtype: str = "int32") -> tuple:
     """``choose_impl`` with its reasoning: ``(impl, source, reason,
-    candidates)``. ``backend`` is the device type the call runs on
-    (``'cuda'``, the default, or ``'cpu'``)."""
-    if tune != "off":
-        raise _not_ported(f"tune={tune!r}", 11)
+    candidates)``, with ``source``/``candidates`` as in
+    ``repro_torch.tune.DispatchDecision``. ``backend`` is the device type
+    the call runs on (``'cuda'``, the default, or ``'cpu'``). The
+    structural rules fire before any scoring; with ``tune != 'off'`` the
+    remaining in-core choice comes from the cost-model ranking (or a
+    tuning-table hit) instead of the ``M < 2N`` rule."""
     if mesh is not None:
         return ("sharded", "structural", "mesh shards the reference axis",
                 ())
@@ -93,6 +105,14 @@ def choose_impl_explained(nq: int, n: int, m: int, *,
         return ("chunked", "structural",
                 f"M >= CHUNK_THRESHOLD (1<<{CHUNK_THRESHOLD.bit_length() - 1})",
                 ())
+    if tune != "off":
+        from repro_torch.tune import rank_incore
+        res = rank_incore(nq, n, m, backend=backend, metric=metric,
+                          dtype=dtype, mode=tune)
+        impl = res.config.impl
+        if impl in ("rowscan", "wavefront"):
+            return (impl, res.source, f"in-core ranking ({res.source})",
+                    res.candidates)
     if m < 2 * n:
         return ("wavefront", "legacy", "M < 2N: diagonal depth is cheap", ())
     return ("rowscan", "legacy", "default in-core schedule", ())
@@ -128,7 +148,7 @@ def sdtw(queries, reference, qlens=None, *, metric: str = "abs_diff",
          return_positions: bool = False, return_spans: bool = False,
          excl_zone=None, excl_mode: str = "end",
          block_q: Optional[int] = None, block_m: Optional[int] = None,
-         tune: str = "off", explain: bool = False, device=None):
+         tune: str = "model", explain: bool = False, device=None):
     """Subsequence-DTW distances of ``queries`` against ``reference``.
 
     Args as ``repro.core.engine.sdtw``: ``queries`` (nq, N) padded, a
@@ -138,10 +158,17 @@ def sdtw(queries, reference, qlens=None, *, metric: str = "abs_diff",
     ``chunk``; ``excl_lo``/``excl_hi``; ``top_k``; ``return_positions``;
     ``return_spans``; ``excl_zone``; ``excl_mode``; ``block_q``/
     ``block_m`` (the kernel's queries per block and staged reference
-    tile). ``device`` is where it runs: ``None`` is the CUDA device (an
-    error when none is present), ``"cpu"`` the plain PyTorch versions.
-    ``mesh``/``mesh_shape``/``n_micro``, ``tune`` other than ``'off'``
-    and ``explain`` are not ported yet.
+    tile); ``tune`` (``'model'``, the default, fills unset performance
+    knobs from the ``repro_torch.tune`` oracle — on the card the kernel's
+    launch, on the CPU the in-core schedule and the chunk size;
+    ``'measure'`` refines the bucket with a short measured search first,
+    once per process; ``'off'`` keeps the hand-set policies; explicit
+    knobs always win, and int32 answers do not depend on it); ``explain``
+    (return ``(result, DispatchDecision)``; not for ragged lists).
+    ``device`` is where it runs: ``None`` is the CUDA device (an error
+    when none is present), ``"cpu"`` the plain PyTorch versions.
+    ``mesh``/``mesh_shape``/``n_micro`` are not ported yet (ROADMAP queue
+    1, item 12).
 
     Returns (nq,) distances in the accumulator dtype — a 0-d tensor for a
     single 1-D query; a (dists, positions) pair or (dists, starts, ends)
@@ -169,6 +196,10 @@ def _execute_sdtw(req: SdtwRequest):
     execution paths."""
     dev = resolve_device(req.device)
     if isinstance(req.queries, (list, tuple)):
+        if req.explain:
+            raise ValueError(
+                "explain=True is not supported for ragged query lists — "
+                "each bucket may dispatch differently; call per bucket")
         return _sdtw_ragged(req, dev)
 
     queries = as_tensor(req.queries, dev)
@@ -180,15 +211,30 @@ def _execute_sdtw(req: SdtwRequest):
     m = reference.shape[0]
     qlens = None if req.qlens is None else as_tensor(req.qlens, dev,
                                                      torch.int32)
+    dtype = str(result_dtype(queries, reference)).removeprefix("torch.")
+    tune = req.tune
+    if tune == "measure" and dev.type != "cuda":
+        # The measured refinement runs before dispatch, once per process
+        # per bucket; every later consultation is a table hit. On the card
+        # the kernel's launch resolves it (``ops.tuned_launch``).
+        from repro_torch.tune import resolve
+        resolve(nq, n, m, backend=dev.type, metric=req.metric, dtype=dtype,
+                mode="measure", span=req.return_spans)
     has_excl = req.excl_lo is not None or req.excl_hi is not None
     if req.impl == "pallas" and has_excl:
         raise ValueError("the pallas kernel does not support exclusion "
                          "zones; use impl='rowscan' or 'chunked'")
     impl = req.impl
     if impl == "auto":
-        impl = choose_impl(nq, n, m, backend=dev.type, chunk=req.chunk,
-                           has_exclusion=has_excl, top_k=req.top_k)
+        impl, source, reason, candidates = choose_impl_explained(
+            nq, n, m, backend=dev.type, chunk=req.chunk,
+            has_exclusion=has_excl, top_k=req.top_k, tune=tune,
+            metric=req.metric, dtype=dtype)
+    else:
+        source, reason, candidates = ("explicit",
+                                      "impl forced by the caller", ())
 
+    config: dict = {}
     if impl in ("rowscan", "wavefront"):
         lo = _normalize_excl(req.excl_lo, nq, dev) if has_excl else None
         hi = _normalize_excl(req.excl_hi, nq, dev) if has_excl else None
@@ -202,19 +248,32 @@ def _execute_sdtw(req: SdtwRequest):
                             block_q=req.block_q, block_m=req.block_m,
                             return_positions=req.return_positions,
                             return_spans=req.return_spans, device=dev,
-                            excl_lo=req.excl_lo, excl_hi=req.excl_hi)
+                            excl_lo=req.excl_lo, excl_hi=req.excl_hi,
+                            tune=tune)
             if (has_excl and isinstance(out, tuple)
                     and choose_impl_explained(
-                        nq, n, m, backend="cpu",
-                        has_exclusion=True)[0] == "rowscan"):
+                        nq, n, m, backend="cpu", has_exclusion=True,
+                        tune=tune, metric=req.metric,
+                        dtype=dtype)[0] == "rowscan"):
                 out = _as_row_scan(out)
         else:
             out = _pallas_streamed(queries, reference, qlens, req.metric,
                                    req.chunk, req.block_q, req.block_m,
-                                   req.return_positions, req.return_spans)
+                                   req.return_positions, req.return_spans,
+                                   tune=tune)
+        if req.explain:
+            config, kcands = _kernel_decision(req, queries, reference, dev,
+                                              tune)
+            candidates = candidates or kcands
     else:  # chunked
+        chunk = req.chunk
+        if chunk is None and tune != "off":
+            from repro_torch.tune import tuned_chunk
+            chunk = tuned_chunk(nq, n, m, backend=dev.type,
+                                metric=req.metric, dtype=dtype, mode=tune)
+        config = {"chunk": chunk or DEFAULT_CHUNK}
         out = sdtw_chunked(queries, reference, qlens, req.metric,
-                           req.chunk or DEFAULT_CHUNK,
+                           config["chunk"],
                            _normalize_excl(req.excl_lo, nq, dev),
                            _normalize_excl(req.excl_hi, nq, dev),
                            top_k=req.top_k, excl_zone=req.excl_zone,
@@ -223,7 +282,36 @@ def _execute_sdtw(req: SdtwRequest):
                            excl_mode=req.excl_mode)
     if single:
         out = tuple(o[0] for o in out) if isinstance(out, tuple) else out[0]
+    if req.explain:
+        from repro_torch.tune import DispatchDecision
+        return out, DispatchDecision(
+            impl=impl, source=source, reason=reason, config=config,
+            score_us=candidates[0][1] if candidates else None,
+            candidates=candidates)
     return out
+
+
+def _kernel_decision(req: SdtwRequest, queries, reference, dev, tune):
+    """The kernel route's ``explain`` payload: ``(config, candidates)`` —
+    on the card the launch ``ops.tuned_launch`` resolves (the same oracle
+    lookup the launch made) with, under ``'source'``, where its knobs came
+    from (``'legacy'``: the hand-set policy); on the CPU the plain
+    version, which has no launch knobs."""
+    if dev.type != "cuda":
+        return {"kernel": "plain"}, ()
+    from repro_torch.core.distances import accum_dtype
+    from repro_torch.kernels.sdtw import ops
+    b, n = queries.shape
+    bans = ops.kernel_bans(req.excl_lo, req.excl_hi, b, dev)
+    acc = accum_dtype(result_dtype(queries, reference))
+    cfg, res = ops.tuned_launch(
+        b, n, reference.shape[0], sms=ops.sm_count(dev.index),
+        block_q=req.block_q, block_m=req.block_m,
+        variant="span" if req.return_spans else "plain",
+        ban=bans is not None, metric=req.metric,
+        dtype=str(acc).removeprefix("torch."), tune=tune)
+    return ({**cfg, "source": res.source if res else "legacy"},
+            res.candidates if res else ())
 
 
 def stream(queries, *, qlens=None, metric: str = "abs_diff",
@@ -333,17 +421,20 @@ def _as_row_scan(out):
 
 
 def _pallas_streamed(queries, reference, qlens, metric, chunk, block_q,
-                     block_m, return_positions, return_spans=False):
+                     block_m, return_positions, return_spans=False,
+                     tune: str = "off"):
     """The ``impl='pallas'`` + ``chunk=`` dispatcher: one launch for
-    references up to ``PALLAS_FUSED_MAX`` samples (``chunk`` advisory),
-    the device-side slice loop beyond."""
+    references up to ``PALLAS_FUSED_MAX`` samples (``chunk`` advisory,
+    the launch tuned as ``tune`` says), the device-side slice loop
+    beyond."""
     from repro_torch.kernels.sdtw import sdtw_cuda
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if reference.shape[0] <= PALLAS_FUSED_MAX:
         return sdtw_cuda(queries, reference, qlens, metric, block_q=block_q,
                          block_m=block_m, return_positions=return_positions,
-                         return_spans=return_spans, device=queries.device)
+                         return_spans=return_spans, device=queries.device,
+                         tune=tune)
     return _pallas_scan_streamed(queries, reference, qlens, metric,
                                  chunk=chunk, block_q=block_q,
                                  block_m=block_m,
@@ -439,7 +530,8 @@ def _sdtw_ragged(req: SdtwRequest, dev: torch.device):
     each bucket passes per-query exclusion arrays (``-1`` when none were
     given): the reference's ``impl='auto'`` then never picks its kernel,
     where here the card takes the kernel, which launches without a ban
-    for ranges that are empty for every query."""
+    for ranges that are empty for every query. The buckets' results are
+    put back in caller order by one gather per output."""
     qs = [q.cpu().numpy() if isinstance(q, torch.Tensor) else np.asarray(q)
           for q in req.queries]
     nq = len(qs)
@@ -453,7 +545,8 @@ def _sdtw_ragged(req: SdtwRequest, dev: torch.device):
         return empty if n_out > 1 else empty[0]
     lo = _normalize_excl(req.excl_lo, nq, "cpu").numpy()
     hi = _normalize_excl(req.excl_hi, nq, "cpu").numpy()
-    outs = [[None] * nq for _ in range(n_out)]
+    outs = [[] for _ in range(n_out)]
+    order = []
     for blen, idxs in bucketize([len(q) for q in qs]).items():
         padded, qlens = pad_ragged_bucket(qs, idxs, blen)
         res = sdtw(torch.from_numpy(padded), req.reference,
@@ -463,10 +556,13 @@ def _sdtw_ragged(req: SdtwRequest, dev: torch.device):
                    return_positions=req.return_positions,
                    return_spans=req.return_spans, excl_zone=req.excl_zone,
                    excl_mode=req.excl_mode, block_q=req.block_q,
-                   block_m=req.block_m, device=dev)
+                   block_m=req.block_m, tune=req.tune, device=dev)
         res = res if isinstance(res, tuple) else (res,)
         for t in range(n_out):
-            for k, i in enumerate(idxs):
-                outs[t][i] = res[t][k]
-    stacked = tuple(torch.stack(o) for o in outs)
+            outs[t].append(res[t])
+        order.extend(idxs)
+    inverse = torch.empty(nq, dtype=torch.long)
+    inverse[torch.as_tensor(order)] = torch.arange(nq)
+    inverse = inverse.to(dev)
+    stacked = tuple(torch.cat(o)[inverse] for o in outs)
     return stacked if n_out > 1 else stacked[0]

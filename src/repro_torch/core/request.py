@@ -6,11 +6,11 @@ offline call's arguments — ``op='sdtw'`` (``engine.sdtw``) or
 ``op='search_topk'`` (``repro_torch.search.search_topk``) — and
 ``validate()`` runs the front-door checks with the reference's messages;
 ``run()`` dispatches. ``StreamRequest`` is ``engine.stream``'s argument
-surface; ``open()`` returns the ``StreamSession``. What later slices of
-the port bring raises ``NotImplementedError`` naming its item in
-``ROADMAP.md`` (queue 1): meshes, ``impl='sharded'`` and the sharded
-stream session (item 12), tuning modes other than ``'off'`` and
-``explain=True`` (item 11; int32 answers do not depend on tuning).
+surface; ``open()`` returns the ``StreamSession``. ``coalesce_key()``
+is the serve tier's batching key (``repro_torch.serve``). What later
+slices of the port bring raises ``NotImplementedError`` naming its item
+in ``ROADMAP.md`` (queue 1): meshes, ``impl='sharded'`` and the sharded
+stream session (item 12).
 
 Argument semantics (as in the reference):
 
@@ -23,6 +23,9 @@ Argument semantics (as in the reference):
     exclusion); given together or not at all.
   * ``top_k``/``k`` — matches per query; the search front door spells it
     ``k``.
+  * ``tune`` — ``'model'`` (the default), ``'measure'`` or ``'off'``:
+    where unset performance knobs come from (``repro_torch.tune``); int32
+    answers do not depend on it.
   * ``device`` — where the call runs: ``None`` means the CUDA device,
     ``"cpu"`` the plain PyTorch versions.
 """
@@ -95,15 +98,15 @@ class SdtwRequest:
     excl_mode: str = "end"
     block_q: Optional[int] = None
     block_m: Optional[int] = None
-    tune: str = "off"
+    tune: str = "model"
     explain: bool = False
     op: str = "sdtw"
     device: Any = None
     # --- serve-tier-only -------------------------------------------------
     # Scheduling metadata, as in the reference: ``priority`` (an int,
     # higher drains sooner) and ``tenant`` (hashable, keys quotas) are
-    # validated and ignored by ``run()``; the serve tier that reads them
-    # is ROADMAP item 13.
+    # validated and ignored by ``run()``; ``repro_torch.serve``'s
+    # admission queue reads them.
     priority: int = 0
     tenant: Any = None
     # --- search_topk-only ------------------------------------------------
@@ -139,11 +142,6 @@ class SdtwRequest:
                              f"{self.tune!r}")
         if self.op == "search_topk":
             return self._validate_search()
-        if self.tune != "off":
-            raise _not_ported(f"tune={self.tune!r} (no fitted H100 cost "
-                              f"model yet)", 11)
-        if self.explain:
-            raise _not_ported("explain=True", 11)
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got "
                              f"{self.impl!r}")
@@ -224,6 +222,36 @@ class SdtwRequest:
             return search_mod._execute_search(req)
         from repro_torch.core import engine
         return engine._execute_sdtw(req)
+
+    def coalesce_key(self, ref_id=None):
+        """Hashable key under which requests may share one batched engine
+        call (the reference's, with the device folded in: a CPU request
+        and a card request never merge): everything that selects a launch
+        or changes per-query semantics except the queries themselves, the
+        reference folded in via ``ref_id``. Per-query exclusion arrays key
+        by object identity, so such requests never coalesce."""
+        from repro_torch.device import resolve_device
+        return (self.op, self.metric, self.impl, self.chunk,
+                self.top_k, self.return_positions, self.return_spans,
+                self.excl_mode, self.block_q, self.block_m, self.tune,
+                self.ref_axis, self.n_micro, str(resolve_device(self.device)),
+                _scalar_or_id(self.excl_zone),
+                _scalar_or_id(self.excl_lo), _scalar_or_id(self.excl_hi),
+                bool(self.prune) if self.op == "search_topk" else None,
+                self.span_cap if self.op == "search_topk" else None,
+                bool(self.normalize) if self.op == "search_topk" else None,
+                self.engine_impl if self.op == "search_topk" else None,
+                ref_id)
+
+
+def _scalar_or_id(val):
+    """Coalesce-key component for a possibly-array argument: scalars
+    coalesce by value, arrays never coalesce across requests."""
+    if val is None:
+        return None
+    if np.ndim(val) == 0:
+        return ("s", float(val))
+    return ("a", id(val))
 
 
 def _reject_unknown(cls, kwargs):

@@ -161,12 +161,20 @@ def choose_kernel(n: int, kernel: str = "auto", b=None, sms=None) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
+def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def resolve_rows(b: int, n: int, block_q=None, *, sms: int):
+def sm_count(index=None) -> int:
+    """Streaming multiprocessors of CUDA device ``index``; ``None`` (a
+    ``torch.device("cuda")`` without an index) reads the current device,
+    so that a worker pinned with ``torch.cuda.device`` sees its own
+    card."""
+    return _sm_count(torch.cuda.current_device() if index is None
+                     else index)
+
+
+def resolve_rows(b: int, n: int, block_q=None, *, sms: int, rows=None):
     """The rows kernel's launch policy for a (b, n) batch on a card of
     ``sms`` SMs.
 
@@ -175,24 +183,29 @@ def resolve_rows(b: int, n: int, block_q=None, *, sms: int):
     lanes and divides n with 32·R ≤ 1.15·n (so row n - 1 is a lane's last
     slot and the harvest reads a fixed register), else the smallest that
     covers n. ``block_q=None`` takes ``ROWS_WARPS`` warps per block, fewer
-    when b is small so the grid still covers the card's SMs.
-    Raises ``ValueError`` for a query or a block the kernel does not take.
+    when b is small so the grid still covers the card's SMs; ``rows``
+    forces R (the tuner's choice).
+    Raises ``ValueError`` for a query, an R or a block the kernel does not
+    take.
     """
     n = max(int(n), 1)
     cover = [r for r in ROWS_PER_LANE if 32 * r >= n]
     if not cover:
         raise ValueError(f"the rows kernel takes queries of up to "
                          f"{ROWS_MAX_N} samples, got N={n}")
+    if rows is not None and rows not in cover:
+        raise ValueError(f"the rows kernel takes R in {cover} at N={n}, got "
+                         f"rows={rows}")
     fit = [r for r in cover if n % r == 0 and 32 * r <= 1.15 * n]
     if block_q is None:
         block_q = max(1, min(ROWS_WARPS, b // sms))
     if not 1 <= block_q <= ROWS_MAX_WARPS:
         raise ValueError(f"the rows kernel takes 1 to {ROWS_MAX_WARPS} "
                          f"queries per block, got block_q={block_q}")
-    return block_q, (fit or cover)[0]
+    return block_q, rows if rows is not None else (fit or cover)[0]
 
 
-def resolve_chain(b: int, n: int, block_q=None, *, sms: int):
+def resolve_chain(b: int, n: int, block_q=None, *, sms: int, rows=None):
     """The chain kernel's launch policy for a (b, n) batch on a card of
     ``sms`` SMs.
 
@@ -204,11 +217,12 @@ def resolve_chain(b: int, n: int, block_q=None, *, sms: int):
     W·(R + ``CHAIN_STEP_ROWS``) rows a step (slack rows and per-step
     overhead), ties to an R that divides n (row n - 1 is then a lane's
     last slot and the harvest reads a fixed register); when none gives
-    that many, the R with the most warps.
+    that many, the R with the most warps. ``rows`` forces R (the tuner's
+    choice).
     ``block_q=None`` puts queries of fewer than 4 warps several to a block
     (at most 4 warps, and no fewer blocks than SMs). Raises ``ValueError``
-    for a query longer than ``CHAIN_MAX_N`` or a block the kernel does not
-    take.
+    for a query longer than ``CHAIN_MAX_N``, an R or a block the kernel
+    does not take.
     """
     n = max(int(n), 1)
     cover = [(r, -(-n // (32 * r))) for r in CHAIN_ROWS
@@ -216,6 +230,12 @@ def resolve_chain(b: int, n: int, block_q=None, *, sms: int):
     if not cover:
         raise ValueError(f"the chain kernel takes queries of up to "
                          f"{CHAIN_MAX_N} samples, got N={n}")
+    if rows is not None:
+        cover = [c for c in cover if c[0] == rows]
+        if not cover:
+            raise ValueError(f"the chain kernel takes R in {CHAIN_ROWS} "
+                             f"with at most {CHAIN_MAX_WARPS} warps at "
+                             f"N={n}, got rows={rows}")
     busy = [c for c in cover
             if c[1] * max(1.0, b / sms) >= CHAIN_WARPS_PER_SM]
     rows, warps = (min(busy, key=lambda c: (c[1] * (c[0] + CHAIN_STEP_ROWS),
@@ -274,6 +294,75 @@ def resolve_blocks(b: int, m: int, block_q=None, block_m=None, *, n: int,
     ring = _pow2_at_least(n + block_m)
     scratch = smem_bytes(n, block_q, ring, span) > SMEM_LIMIT
     return block_q, block_m, tpq, ring, scratch
+
+
+def launch_config(b: int, n: int, m: int, *, sms: int, kernel="auto",
+                  rows=None, block_q=None, block_m=None, span=False) -> dict:
+    """The launch a (b, n) batch against m columns gets from the hand-set
+    policies (``choose_kernel``, then ``resolve_rows`` / ``resolve_chain``
+    / ``resolve_blocks``), with the given knobs forced: ``{"kernel",
+    "rows", "warps", "block_q", "block_m"}`` — R, the warps of one query
+    (the wavefront's: its threads a query / 32) and the queries a block;
+    ``block_m`` is the wavefront's staged tile (``None`` on the others,
+    which raise when one is given, as ``rows`` does on the wavefront).
+    This is ``tune='off'``'s launch, and the autotuner's candidates."""
+    kernel = choose_kernel(n, kernel, b, sms)
+    if kernel != "wavefront" and block_m is not None:
+        raise ValueError(f"block_m is the wavefront kernel's staged tile; "
+                         f"the {kernel} kernel stages none")
+    if kernel == "rows":
+        block_q, rows = resolve_rows(b, n, block_q, sms=sms, rows=rows)
+        warps = 1
+    elif kernel == "chain":
+        warps, rows, block_q = resolve_chain(b, n, block_q, sms=sms,
+                                             rows=rows)
+    else:
+        if rows is not None:
+            raise ValueError("rows= is R of the rows and chain kernels; the "
+                             "wavefront kernel's threads a query decide it")
+        block_q, block_m, tpq, _, _ = resolve_blocks(b, m, block_q, block_m,
+                                                     n=n, span=span)
+        rows, warps = -(-max(int(n), 1) // tpq), tpq // 32
+    return {"kernel": kernel, "rows": rows, "warps": warps,
+            "block_q": block_q, "block_m": block_m}
+
+
+def tuned_launch(b: int, n: int, m: int, *, sms: int, kernel="auto",
+                 rows=None, block_q=None, block_m=None, variant="plain",
+                 ban=False, metric="abs_diff", dtype="int32", tune="off"):
+    """``launch_config`` with the unset knobs from the autotuner: under
+    ``tune='model'`` or ``'measure'`` the ``repro_torch.tune`` oracle's
+    decision for this bucket and launch ``variant`` (``'plain'``,
+    ``'span'``, ``'lastrow'``) fills the kernel (when ``kernel='auto'``)
+    and, for that kernel, R, the queries a block and the tile; explicit
+    knobs always win, and ``tune='off'`` is the hand-set policy exactly.
+    A bucket's decision that does not fit this shape (R or the kernel
+    chosen for a shorter query of the same bucket) gives way to the
+    hand-set policy. Returns ``(config, resolution)``; the resolution
+    (``tune.Resolution``) is ``None`` under ``'off'``."""
+    span = variant != "plain"
+    if tune == "off":
+        return launch_config(b, n, m, sms=sms, kernel=kernel, rows=rows,
+                             block_q=block_q, block_m=block_m,
+                             span=span), None
+    from repro_torch.tune import resolve
+    res = resolve(b, n, m, backend="h100", metric=metric, dtype=dtype,
+                  mode=tune, variant=variant, ban=ban)
+    c = res.config
+    tk = c.kernel if kernel == "auto" else kernel
+    tuned = dict(kernel=tk, rows=rows, block_q=block_q, block_m=block_m)
+    if tk == c.kernel:
+        tuned["rows"] = c.rows if rows is None and tk != "wavefront" \
+            else rows
+        tuned["block_q"] = c.block_q if block_q is None else block_q
+        tuned["block_m"] = (c.block_m if block_m is None
+                            and tk == "wavefront" else block_m)
+    try:
+        return launch_config(b, n, m, sms=sms, span=span, **tuned), res
+    except ValueError:
+        return launch_config(b, n, m, sms=sms, kernel=kernel, rows=rows,
+                             block_q=block_q, block_m=block_m,
+                             span=span), res
 
 
 def scratch_batch(n: int, block_q: int, span: bool) -> int:
@@ -339,29 +428,22 @@ def _lib(name: str):
 
 
 def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
-                 ref_offset, rlen, ref_lead, want_lastrow, block_q, block_m,
-                 kernel, bans=None):
-    """Allocate the outputs and launch ``kernel`` (``"rows"``,
-    ``"chain"`` or ``"wavefront"``) on the current stream — its
-    instantiation with the ban when ``bans`` (``kernel_bans``) is given;
-    the wavefront kernel in batch slices when its global scratch would
-    exceed ``SCRATCH_LIMIT``."""
+                 ref_offset, rlen, ref_lead, want_lastrow, cfg, bans=None):
+    """Allocate the outputs and launch ``cfg["kernel"]`` (``"rows"``,
+    ``"chain"`` or ``"wavefront"``; ``cfg`` from ``launch_config``) on the
+    current stream — its instantiation with the ban when ``bans``
+    (``kernel_bans``) is given; the wavefront kernel in batch slices when
+    its global scratch would exceed ``SCRATCH_LIMIT``."""
     track = bstart is not None
     b, n = q.shape
     m = r.shape[0]
     acc = q.dtype
     dev = q.device
-    if kernel != "wavefront" and block_m is not None:
-        raise ValueError(f"block_m is the wavefront kernel's staged tile; "
-                         f"the {kernel} kernel stages none")
-    if kernel == "rows":
-        warps, rows = resolve_rows(b, n, block_q, sms=sm_count(dev.index))
-    elif kernel == "chain":
-        warps, rows, bq = resolve_chain(b, n, block_q,
-                                        sms=sm_count(dev.index))
-    else:
-        bq, tile, tpq, ring, scratch = resolve_blocks(b, m, block_q, block_m,
-                                                      n=n, span=track)
+    kernel, rows, bq = cfg["kernel"], cfg["rows"], cfg["block_q"]
+    warps = bq if kernel == "rows" else cfg["warps"]
+    if kernel == "wavefront":
+        bq, tile, tpq, ring, scratch = resolve_blocks(
+            b, m, bq, cfg["block_m"], n=n, span=track)
 
     def empty(shape, dtype, on=True):
         return torch.empty(shape, dtype=dtype, device=dev) if on else None
@@ -421,7 +503,8 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
               return_positions: bool = False, return_spans: bool = False,
               track_start: bool = False, ref_len=None, ref_lead=0,
               return_lastrow: bool = False, device=None,
-              kernel: str = "auto", excl_lo=None, excl_hi=None):
+              kernel: str = "auto", excl_lo=None, excl_hi=None,
+              rows: int | None = None, tune: str = "off"):
     """Batched sDTW through the hand-written kernels: queries (B, N),
     reference (M,) → (B,) distances.
 
@@ -430,9 +513,14 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
     (``choose_kernel``), ``"rows"``, ``"chain"`` or ``"wavefront"``; the
     CPU runs the plain version whatever it says. ``block_q`` overrides the
     queries per block of each kernel's policy (``resolve_rows``,
-    ``resolve_chain``, ``resolve_blocks``), ``block_m`` the wavefront's
-    staged tile (a CUDA launch of the rows or chain kernel raises if it is
-    given). ``carry`` continues a
+    ``resolve_chain``, ``resolve_blocks``), ``rows`` the rows and chain
+    kernels' R, ``block_m`` the wavefront's staged tile (a CUDA launch of
+    the rows or chain kernel raises if it is given). ``tune`` is the
+    reference's ``sdtw_pallas(tune=)``: ``'off'`` (the default, as there)
+    keeps the hand-set policies; ``'model'`` and ``'measure'`` fill the
+    unset knobs — the kernel too, under ``kernel="auto"`` — from the
+    ``repro_torch.tune`` oracle (``tuned_launch``); explicit knobs always
+    win, and the answers do not depend on it. ``carry`` continues a
     previous call's ``return_carry=True`` state (a 5-tuple selects span
     mode; a legacy ``(bcol, best)`` pair seeds positions at -1).
     ``ref_offset`` is the global column of ``reference[0]``, so reported
@@ -462,8 +550,8 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
                          f"{tuple(reference.shape)}")
     b, n = queries.shape
     m = reference.shape[0]
-    kernel = choose_kernel(n, kernel, b,
-                           sm_count(dev.index) if dev.type == "cuda" else None)
+    if dev.type != "cuda":
+        choose_kernel(n, kernel, b)     # the kernel's name and limits
     if m == 0:
         raise ValueError("reference must be non-empty")
     rlen = m if ref_len is None else int(ref_len)
@@ -510,9 +598,16 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
     bans = kernel_bans(excl_lo, excl_hi, b, dev)
 
     if dev.type == "cuda":
+        cfg, _ = tuned_launch(
+            b, n, m, sms=sm_count(dev.index), kernel=kernel, rows=rows,
+            block_q=block_q, block_m=block_m,
+            variant=("lastrow" if return_lastrow else "span" if track
+                     else "plain"),
+            ban=bans is not None, metric=metric,
+            dtype=str(acc).removeprefix("torch."), tune=tune)
         outs = _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart,
                             start, ref_offset, rlen, ref_lead,
-                            return_lastrow, block_q, block_m, kernel, bans)
+                            return_lastrow, cfg, bans)
     else:
         lo, hi = bans if bans is not None else (None, None)
         outs = sdtw_kernel_plain(q, r, qlens, metric, bcol, best, pos,

@@ -2,8 +2,9 @@
 
 The port runs with ``device="cpu"`` (its plain PyTorch versions: the
 kernel impl runs the kernel's plain version); the reference runs under
-JAX on the CPU with ``tune='off'`` (the port's only tuning mode; int32
-answers do not depend on tuning). int32 results are compared bitwise.
+JAX on the CPU. Both default to ``tune='model'``, whose CPU decisions
+are the same in both packages (and int32 answers do not depend on
+tuning). int32 results are compared bitwise.
 """
 import os
 import pathlib
@@ -48,7 +49,7 @@ def _tsdtw(*a, **kw):
 
 def _jsdtw(*a, **kw):
     return jengine.sdtw(*[jnp.asarray(x) if isinstance(x, np.ndarray) else x
-                          for x in a], tune="off", **kw)
+                          for x in a], **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -81,8 +82,10 @@ def test_cuda_dispatch_rule_3():
     assert ci(8, 16, 4096, backend="cuda", top_k=3) == "chunked"
     assert ci(8, 16, 4096, backend="cuda", has_exclusion=True) == "pallas"
     assert ci(8, 16, 4096, backend="cuda", mesh=object()) == "sharded"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ci(8, 16, 4096, backend="cuda", tune="model")
+    # Tuning leaves rule 3 structural: the oracle decides the launch.
+    assert tengine.choose_impl_explained(
+        8, 16, 4096, backend="cuda", tune="model")[:2] == ("pallas",
+                                                           "structural")
 
 
 # ---------------------------------------------------------------------------
@@ -175,17 +178,20 @@ def test_ragged_list_on_a_cuda_backend_takes_the_kernel(rng, monkeypatch):
     reference's."""
     import repro_torch.kernels.sdtw.ops as ops
     chosen, bans = [], []
-    real_choose, real_plain = tengine.choose_impl, ops.sdtw_kernel_plain
+    real_choose = tengine.choose_impl_explained
+    real_plain = ops.sdtw_kernel_plain
 
     def as_on_the_card(*a, **kw):
-        chosen.append((kw["has_exclusion"], real_choose(
-            *a, **dict(kw, backend="cuda"))))
-        return chosen[-1][1]
+        if kw["backend"] != "cuda" and "top_k" in kw:   # the dispatch
+            decision = real_choose(*a, **dict(kw, backend="cuda"))
+            chosen.append((kw["has_exclusion"], decision[0]))
+            return decision
+        return real_choose(*a, **kw)
 
     def plain(*a):
         bans.append(a[-2:])
         return real_plain(*a)
-    monkeypatch.setattr(tengine, "choose_impl", as_on_the_card)
+    monkeypatch.setattr(tengine, "choose_impl_explained", as_on_the_card)
     monkeypatch.setattr(ops, "sdtw_kernel_plain", plain)
     qs = [rng.integers(-30, 30, n).astype(np.int32) for n in (3, 17, 40)]
     r = rng.integers(-30, 30, 90).astype(np.int32)
@@ -206,19 +212,23 @@ def test_fully_banned_rows_on_the_kernel_route_answer_as_the_row_scan(
     all-BIG row, not the kernel's -1; where they pick the wavefront
     (M < 2N), -1 as it does. Every output, fully banned rows included,
     equals the JAX package's ``engine.sdtw``. Here the dispatch is asked
-    as for the card, and the kernel's CPU stand-in runs."""
+    as for the card, and the kernel's CPU stand-in runs; both packages run
+    with ``tune='off'``, whose rules 5-6 pick the route named."""
     import repro_torch.kernels.sdtw.ops as ops
     chosen, banned = [], []
-    real_choose, real_plain = tengine.choose_impl, ops.sdtw_kernel_plain
+    real_choose = tengine.choose_impl_explained
+    real_plain = ops.sdtw_kernel_plain
 
     def as_on_the_card(*a, **kw):
-        chosen.append(real_choose(*a, **dict(kw, backend="cuda")))
-        return chosen[-1]
+        if "top_k" in kw:                       # the dispatch
+            chosen.append(real_choose(*a, **dict(kw, backend="cuda"))[0])
+            return real_choose(*a, **dict(kw, backend="cuda"))
+        return real_choose(*a, **kw)
 
     def plain(*a):
         banned.append(a[-1] is not None)
         return real_plain(*a)
-    monkeypatch.setattr(tengine, "choose_impl", as_on_the_card)
+    monkeypatch.setattr(tengine, "choose_impl_explained", as_on_the_card)
     monkeypatch.setattr(ops, "sdtw_kernel_plain", plain)
     q = rng.integers(-30, 30, (5, 9)).astype(np.int32)
     r = rng.integers(-30, 30, m).astype(np.int32)
@@ -227,7 +237,7 @@ def test_fully_banned_rows_on_the_kernel_route_answer_as_the_row_scan(
     lo = np.array([0, 2, 0, 10, -5], np.int32)
     hi = np.array([2**31 - 1, 5, m, 12, 100], np.int32)     # 3 fully banned
     kw = dict(return_positions=mode == "positions",
-              return_spans=mode == "spans")
+              return_spans=mode == "spans", tune="off")
     got = _tsdtw(q, r, excl_lo=lo, excl_hi=hi, **kw)
     assert chosen == ["pallas"] and banned == [True]
     want = _jsdtw(q, r, excl_lo=jnp.asarray(lo), excl_hi=jnp.asarray(hi),
@@ -274,8 +284,6 @@ def test_validation_messages_match_reference(kw, exc):
     (dict(impl="sharded"), "item 12"),
     (dict(op="search_topk", top_k=1, prune=False, mesh=object()),
      "item 12"),
-    (dict(tune="model"), "item 11"), (dict(tune="measure"), "item 11"),
-    (dict(explain=True), "item 11"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, item):
     req = SdtwRequest(queries=np.zeros((1, 4), np.int32),

@@ -531,9 +531,5 @@ def test_chain_launch_keys():
 def test_block_m_refused_off_the_wavefront(kernel):
     """``block_m`` is the wavefront's staged tile: a rows or chain launch
     refuses it before it touches the card."""
-    q = torch.zeros((2, 1600), dtype=torch.int32)
-    r = torch.zeros(64, dtype=torch.int32)
-    one = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match=f"the {kernel} kernel stages none"):
-        ops._launch_cuda(q, r, one, "abs_diff", q, one, one, None, None, 0,
-                         64, 0, False, None, 16, kernel)
+        ops.launch_config(2, 600, 64, sms=132, kernel=kernel, block_m=16)

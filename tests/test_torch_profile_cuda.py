@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.matsa_api import matsa
-from repro_torch.kernels.sdtw import LAUNCHES, reset_launches
+from repro_torch.kernels.sdtw import LAUNCHES, reset_launches, tuned_launch
+from repro_torch.kernels.sdtw.ops import sm_count
 from repro_torch.search import ProfileResult, matrix_profile
 from repro_torch.stream import StreamProfile, StreamSession
 
@@ -161,7 +162,9 @@ def test_engine_exclusion_takes_the_kernel(spans, n, cuda):
     q = np.stack([r[s:s + n] for s in starts])
     lo = np.maximum(starts - n // 2, 0)
     hi = starts + n + n // 2
-    kernel = "rows" if n <= 1536 else "chain"
+    kernel = tuned_launch(4, n, len(r), sms=sm_count(),
+                          variant="span" if spans else "plain", ban=True,
+                          tune="model")[0]["kernel"]     # the default
     reset_launches()
     got = engine.sdtw(q, r, excl_lo=lo, excl_hi=hi, return_spans=spans,
                       return_positions=not spans, device=cuda)
@@ -181,7 +184,8 @@ def test_fully_banned_query_ends_at_column_0_on_the_card(n, m, cuda):
     """A query banned on every column: distance BIG and the end and start
     of the route the CPU (and the reference) takes for the shape — 0 on
     the row scan (M >= 2N), -1 on the wavefront schedule (M < 2N) — on
-    each of the three kernels ``"auto"`` takes."""
+    each of the three kernels ``"auto"`` takes. Both run with
+    ``tune='off'``, whose rules 5-6 are the M-against-2N rule."""
     rng = np.random.default_rng(n + m)
     r = rng.integers(-50, 50, m).astype(np.int32)
     q = np.stack([r[:n], r[100:100 + n]])
@@ -190,10 +194,10 @@ def test_fully_banned_query_ends_at_column_0_on_the_card(n, m, cuda):
     kernel = "rows" if n <= 1536 else "chain" if n <= 8192 else "wavefront"
     reset_launches()
     got = engine.sdtw(q, r, excl_lo=lo, excl_hi=hi, return_spans=True,
-                      device=cuda)
+                      device=cuda, tune="off")
     _only(f"{kernel}_span_ban")
     want = engine.sdtw(q, r, excl_lo=lo, excl_hi=hi, return_spans=True,
-                       device="cpu")
+                       device="cpu", tune="off")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
     end = 0 if m >= 2 * n else -1

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.traceback import check_path, path_cost
-from repro_torch.kernels.sdtw import LAUNCHES, choose_kernel, reset_launches
+from repro_torch.kernels.sdtw import (LAUNCHES, choose_kernel, reset_launches,
+                                      tuned_launch)
 from repro_torch.kernels.sdtw.ops import sm_count
 from repro_torch.search import search_topk
 
@@ -128,7 +129,8 @@ def test_align_on_the_card_equals_cpu(n, cuda):
     q[0] = ref[100:100 + n]
     reset_launches()
     got = engine.align(q, ref, device=cuda)
-    kernel = "rows" if n <= 128 else "chain"     # 4 queries: "auto" splits
+    kernel = tuned_launch(4, n, len(ref), sms=sm_count(), variant="span",
+                          tune="model")[0]["kernel"]    # align's default
     assert LAUNCHES[f"{kernel}_span"] >= 1, LAUNCHES
     want = engine.align(q, ref, device="cpu")
     for i, (g, w) in enumerate(zip(got, want)):
