@@ -102,6 +102,19 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      window; 8 ``search_topk`` requests of ECG-cut queries in one dispatch
      and a stream fed through ``open_stream``/``feed``, each bitwise the
      offline call; ``python -m repro_torch.serve``;
+ 18. the sharded engine and stream sessions on ``torch.distributed``
+     (one card holds one NCCL rank only, so this shows the protocol and
+     its answers, not scaling): ``matsa(mesh=get_mesh())`` on Human at
+     full width through one NCCL rank, bitwise phase 4's, timed beside
+     it; a sharded ECG-cut stream at world 1, fed 18 pieces of 100,000
+     with a snapshot after piece 9 restored through ``restore(mesh=)``,
+     bitwise phase 10's; then 4 gloo ranks on the card (spawned; carries
+     staged through the host) on meshes (1, 4) and (2, 2):
+     ``engine.sdtw(mesh=, top_k=3, return_spans=True)`` with an
+     ``n_micro`` sweep, ``search_topk(k=3, mesh=, prune=False)`` and the
+     sharded stream with snapshot and restore at world 4, every rank's
+     answers bitwise phases 6, 9 and 10, the kernel's K3 launched on
+     every rank and no plain schedule run;
      then the JSON lines.
 
 Every path runs on ``kernel="auto"``'s choice under the engine's default
@@ -778,7 +791,8 @@ def phase_search(torch, np, ops, kpkg, human, ecg, ls8, dev):
 
 
 def phase_stream(torch, np, ops, kpkg, ecg, ls8, dev):
-    """Phase 10: a streaming session at ECG-cut. Returns its launches."""
+    """Phase 10: a streaming session at ECG-cut. Returns its launches and
+    its results (top-3 with spans, the whole reference)."""
     from repro_torch.core import engine
     from repro_torch.stream import StreamSession
     qe, re_, (de, se, ee) = ecg
@@ -867,7 +881,7 @@ def phase_stream(torch, np, ops, kpkg, ecg, ls8, dev):
     log(f"phase 10: pruned stream, 8 level-shifted queries: {pwall:.3f} s "
         f"wall, kernel {ptimer.ms():.3f} ms, {_counters(pres, 'tiles')}; "
         f"distances == exact stream (spans equal on {spans}/8)")
-    return launches
+    return launches, res
 
 
 def _same_profile(name, got, want, fields=None):
@@ -1670,6 +1684,279 @@ def phase_serve(torch, np, ops, human, ecg, dev):
     return launches, out
 
 
+def free_port() -> int:
+    """A free TCP port on localhost (the rendezvous of a process group)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def same_heap(np, name, got, want):
+    """Top-K triples (distances, starts, ends) equal, bitwise."""
+    for f, g, w in zip(("distances", "starts", "ends"), got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape \
+                or not np.array_equal(g, w):
+            raise AssertionError(f"{name}: {f} differ")
+
+
+def result_heap(res):
+    return res.distances, res.starts, res.positions
+
+
+#: Meshes of the gloo ranks in phase 18 and the n_micro each sweeps
+#: besides the engine's default.
+GLOO_MESHES = (((1, 4), (2, 4)), ((2, 2), (2,)))
+GLOO_WORLD = 4
+
+
+def sharded_stream(engine, mesh, qe, ref, piece, snap_at, restore, dev):
+    """Feed ``ref`` in ``piece``-sample pieces through a sharded session
+    on ``mesh`` (top-3, spans), snapshot after piece ``snap_at``, flush;
+    then restore the snapshot (``restore(snap)``), feed it the rest and
+    flush. Returns (heap, restored heap, samples at the snapshot)."""
+    s = engine.stream(qe, mesh=mesh, top_k=3, return_spans=True, device=dev)
+    snap = None
+    for i, off in enumerate(range(0, len(ref), piece)):
+        s.feed(ref[off:off + piece])
+        if i == snap_at:
+            snap = s.snapshot()
+    s.flush()
+    r2 = restore(snap)
+    at = r2.samples_seen
+    r2.feed(ref[at:])
+    r2.flush()
+    return result_heap(s.results()), result_heap(r2.results()), at
+
+
+def sharded_rank(rank, world, port, data_path, out_dir, src):
+    """Phase 18's body on one of the gloo ranks (all on the one card):
+    every run of the phase on each mesh of ``GLOO_MESHES``; writes the
+    answers, launches and times to ``out_dir/rank<r>.npz`` / ``.json``.
+    ``data_path`` holds the reference and the queries."""
+    sys.path.insert(0, src)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.kernels.sdtw as kpkg
+    from repro_torch.core import engine
+    from repro_torch.distributed import get_mesh, init_multi_host
+    from repro_torch.kernels.sdtw import ops
+    from repro_torch.search import search_topk
+    from repro_torch.stream import ShardedStreamSession
+    init_multi_host(f"localhost:{port}", world, rank, backend="gloo")
+    dev = torch.device("cuda")
+    data = np.load(data_path)
+    ref = data["ref"]
+    qe = torch.as_tensor(data["queries"], device=dev)
+    re_ = torch.as_tensor(ref, device=dev)
+    out, meta = {}, {"launches": {}, "wall_s": {}, "kernel_ms": {}}
+
+    def timed(path, fn):
+        ops.reset_launches()
+        dist.barrier()
+        t0 = time.time()
+        with KernelTimer(torch, kpkg) as timer, NoRowScan(path):
+            res = fn()
+            torch.cuda.synchronize()
+        dist.barrier()
+        meta["wall_s"][path] = time.time() - t0
+        meta["kernel_ms"][path] = timer.ms()
+        meta["launches"][path] = {k: v for k, v in ops.LAUNCHES.items()
+                                  if v}
+        return res
+
+    for shape, sweep in GLOO_MESHES:
+        mesh = get_mesh(shape)
+        tag = "x".join(map(str, shape))
+        res = timed(f"spans_{tag}", lambda: engine.sdtw(
+            qe, re_, mesh=mesh, return_spans=True, device=dev))
+        for i, x in enumerate(res):
+            out[f"spans_{tag}_{i}"] = x.cpu().numpy()
+        res = timed(f"sdtw_{tag}", lambda: engine.sdtw(
+            qe, re_, mesh=mesh, top_k=3, return_spans=True, device=dev))
+        for i, x in enumerate(res):
+            out[f"sdtw_{tag}_{i}"] = x.cpu().numpy()
+        for nm in sweep:
+            res = timed(f"sdtw_{tag}_n_micro{nm}", lambda: engine.sdtw(
+                qe, re_, mesh=mesh, n_micro=nm, top_k=3, return_spans=True,
+                device=dev))
+            for i, x in enumerate(res):
+                out[f"sdtw_{tag}_n_micro{nm}_{i}"] = x.cpu().numpy()
+        res = timed(f"search_{tag}", lambda: search_topk(
+            qe, re_, k=3, mesh=mesh, prune=False, device=dev))
+        for i, x in enumerate(result_heap(res)):
+            out[f"search_{tag}_{i}"] = x.cpu().numpy()
+        heap, heap2, at = timed(f"stream_{tag}", lambda: sharded_stream(
+            engine, mesh, qe, ref, 100_000, 8,
+            lambda snap: ShardedStreamSession.restore(snap, mesh=mesh,
+                                                      device=dev), dev))
+        meta[f"stream_{tag}_restored_at"] = at
+        for i, (x, y) in enumerate(zip(heap, heap2)):
+            out[f"stream_{tag}_{i}"] = x
+            out[f"stream_{tag}_restored_{i}"] = y
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(meta, f)
+    dist.destroy_process_group()
+
+
+def phase_sharded(torch, np, ops, kpkg, human, ecg, dev, root):
+    """Phase 18: the sharded engine and sharded stream sessions on
+    ``torch.distributed``. One card holds one NCCL rank only, so: Human at
+    full width through one NCCL rank (the pipeline degenerates to one
+    stage), and a sharded ECG-cut stream at world 1 restored through
+    ``restore(mesh=)``; then ECG-cut over 4 gloo ranks sharing the card
+    (carries staged through the host), on meshes (1, 4) and (2, 2). A
+    protocol check on one card: it shows the answers, not scaling.
+    Returns the launches of each path (summed over the ranks)."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import engine
+    from repro_torch.core.matsa_api import matsa
+    from repro_torch.distributed import get_mesh, init_multi_host
+    from repro_torch.stream import ShardedStreamSession
+    (queries, reference, d_human, human_s) = human
+    q_e, ref_e, want_e, ecg_s = ecg
+    paths = {}
+    t_phase = time.time()
+
+    # One NCCL rank: the world is this process.
+    init_multi_host(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = get_mesh()
+        ops.reset_launches()
+        t0 = time.time()
+        with NoRowScan("sharded Human"):
+            res = matsa(reference, queries, mode="query_filtering",
+                        mesh=mesh)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        paths["sharded_human_nccl"] = dict(ops.LAUNCHES)
+        if paths["sharded_human_nccl"]["rows_plain"] < 1:
+            raise AssertionError(f"sharded Human missed the kernel: "
+                                 f"{paths['sharded_human_nccl']}")
+        if not torch.equal(res.distances, d_human):
+            raise AssertionError("sharded Human != phase 4 matsa()")
+        again_ms = cuda_ms(lambda: matsa(reference, queries, mesh=mesh),
+                           reps=2)
+        log(f"phase 18: matsa(query_filtering, mesh=get_mesh()) Human "
+            f"{queries.shape[0]}x{queries.shape[1]} vs {len(reference)} on "
+            f"one NCCL rank ({dist.get_backend()}, world "
+            f"{dist.get_world_size()}): first call {wall:.3f} s (phase 4: "
+            f"{human_s[0]:.3f} s), again {again_ms:.3f} ms (phase 4: "
+            f"{human_s[1]:.3f} ms); == phase 4 bitwise; launches "
+            f"{ {k: v for k, v in paths['sharded_human_nccl'].items() if v} }")
+
+        qe = torch.as_tensor(q_e, device=dev)
+        re_ = torch.as_tensor(ref_e, device=dev)
+        ops.reset_launches()
+        t0 = time.time()
+        with NoRowScan("sharded spans, world 1"):
+            spans = engine.sdtw(qe, re_, mesh=mesh, return_spans=True)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        paths["sharded_spans_world1"] = dict(ops.LAUNCHES)
+        same_heap(np, "sharded spans, world 1",
+                  [x.cpu().numpy() for x in spans],
+                  [w[:, 0] for w in want_e])
+        log(f"phase 18: engine.sdtw(mesh=get_mesh(), return_spans=True) "
+            f"ECG-cut at world 1 (NCCL): {wall:.3f} s wall (phase 6: "
+            f"{ecg_s:.3f} s); == phase 6 bitwise; launches "
+            f"{ {k: v for k, v in paths['sharded_spans_world1'].items() if v} }")
+        ops.reset_launches()
+        t0 = time.time()
+        with NoRowScan("sharded stream, world 1"):
+            heap, heap2, at = sharded_stream(
+                engine, mesh, qe, ref_e, 100_000, 8,
+                lambda snap: ShardedStreamSession.restore(
+                    snap, mesh=get_mesh()), dev)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        paths["sharded_stream_world1"] = dict(ops.LAUNCHES)
+        same_heap(np, "sharded stream, world 1", heap, want_e)
+        same_heap(np, "restored sharded stream, world 1", heap2, want_e)
+        log(f"phase 18: sharded stream ECG-cut at world 1 (NCCL), 18 "
+            f"pieces of 100,000, top-3 spans: {wall:.3f} s wall for the "
+            f"run and its restored continuation (snapshot after piece 9, "
+            f"{at} samples, restore(mesh=get_mesh())); both == phase 10 "
+            f"bitwise; launches "
+            f"{ {k: v for k, v in paths['sharded_stream_world1'].items() if v} }")
+    finally:
+        dist.destroy_process_group()
+
+    # Four gloo ranks on the one card. The parent built the kernels
+    # (phase 2); the ranks only load them.
+    work = tempfile.mkdtemp(dir=root / "build")
+    data_path = os.path.join(work, "data.npz")
+    np.savez(data_path, ref=ref_e, queries=q_e)
+    t0 = time.time()
+    ctx = mp.start_processes(
+        sharded_rank, args=(GLOO_WORLD, free_port(), data_path, work,
+                            str(root / "src")),
+        nprocs=GLOO_WORLD, start_method="spawn", join=False)
+    deadline = time.time() + 600
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise AssertionError("phase 18: the gloo ranks did not "
+                                     "finish within 600 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    spawn_s = time.time() - t0
+    ranks = [dict(np.load(os.path.join(work, f"rank{r}.npz")))
+             for r in range(GLOO_WORLD)]
+    metas = [json.load(open(os.path.join(work, f"rank{r}.json")))
+             for r in range(GLOO_WORLD)]
+    for (shape, sweep) in GLOO_MESHES:
+        tag = "x".join(map(str, shape))
+        checks = [(f"sdtw_{tag}", f"sdtw_{tag}_{{}}"),
+                  (f"search_{tag}", f"search_{tag}_{{}}"),
+                  (f"stream_{tag}", f"stream_{tag}_{{}}"),
+                  (f"stream_{tag}", f"stream_{tag}_restored_{{}}")]
+        checks += [(f"sdtw_{tag}_n_micro{nm}", f"sdtw_{tag}_n_micro{nm}_{{}}")
+                   for nm in sweep]
+        for r, got in enumerate(ranks):
+            for path, key in checks:
+                same_heap(np, f"rank {r} {key.format('*')}",
+                          [got[key.format(i)] for i in range(3)], want_e)
+            same_heap(np, f"rank {r} spans_{tag}",
+                      [got[f"spans_{tag}_{i}"] for i in range(3)],
+                      [w[:, 0] for w in want_e])
+        checks.append((f"spans_{tag}", None))
+        for path in {p for p, _ in checks}:
+            per_rank = [m["launches"][path] for m in metas]
+            var = "span" if path.startswith("spans") else "lastrow"
+            if any(not sum(v for k, v in lr.items() if k.endswith(var))
+                   for lr in per_rank):
+                raise AssertionError(f"{path}: a rank missed the kernel's "
+                                     f"{var} variant: {per_rank}")
+            paths[f"sharded_{path}"] = {
+                k: sum(lr.get(k, 0) for lr in per_rank) for k in ops.LAUNCHES}
+            walls = [m["wall_s"][path] for m in metas]
+            kms = [m["kernel_ms"][path] for m in metas]
+            log(f"phase 18: {path} on {GLOO_WORLD} gloo ranks, mesh "
+                f"{shape}: {max(walls):.3f} s wall (protocol check on one "
+                f"card), kernel ms by rank "
+                f"{[round(k, 3) for k in kms]}; launches by rank "
+                f"{per_rank}; every rank == phase "
+                f"{6 if path.startswith('spans') else '6/9/10'} bitwise")
+        log(f"phase 18: stream {tag} restored at world {GLOO_WORLD} from "
+            f"its snapshot at {metas[0][f'stream_{tag}_restored_at']} "
+            f"samples == phase 10 bitwise")
+    log(f"phase 18: {GLOO_WORLD} gloo ranks spawned, ran and joined in "
+        f"{spawn_s:.1f} s; phase 18 total {time.time() - t_phase:.1f} s")
+    return paths
+
+
 def ptxas_summary(log_text: str):
     """``{kernel name: (registers, spill stores, spill loads)}`` from
     nvcc's ``-Xptxas -v`` output."""
@@ -2044,8 +2331,8 @@ def main() -> int:
            torch.as_tensor(ls_ref, device=dev))
     path_by = phase_search(torch, np, ops, kpkg, (qt, rt), (qe, re_, de),
                            ls8, dev)
-    path_by["stream_ecg"] = phase_stream(torch, np, ops, kpkg,
-                                         (qe, re_, (de, se, ee)), ls8, dev)
+    path_by["stream_ecg"], stream_res = phase_stream(
+        torch, np, ops, kpkg, (qe, re_, (de, se, ee)), ls8, dev)
     path_by["align"] = phase_align(torch, np, ops, kpkg,
                                    (queries[:64], reference),
                                    (q_e[:4], ref_e), dev)
@@ -2097,6 +2384,14 @@ def main() -> int:
     del tune_shapes
     path_by["serve_human"], serve_out = phase_serve(
         torch, np, ops, (queries, reference), (q_e, ref_e), dev)
+
+    # Phase 18: the sharded engine and stream sessions on torch.distributed.
+    path_by.update(phase_sharded(
+        torch, np, ops, kpkg,
+        (queries, reference, d, (e2e_first_s, matsa_ms)),
+        (q_e, ref_e, (stream_res.distances, stream_res.starts,
+                      stream_res.positions), ecg_ms / 1e3), dev,
+        pathlib.Path(__file__).resolve().parent))
     path_by = {"matsa_human": human_launches, "topk_fold_human":
                topk_launches, "sdtw_spans_ecg": ecg_launches,
                "long_queries": long_launches, **path_by}

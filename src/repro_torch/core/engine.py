@@ -13,7 +13,11 @@ one call:
     the reference so that callers port like for like.
   * ``chunked`` — reference streaming in fixed tiles with the O(N)
     boundary-column carry (MATSA's inter-subarray pass gates, §III-B).
-  * ``sharded`` — not ported yet (ROADMAP item 12).
+  * ``sharded`` — the reference axis sharded across the ranks of a
+    ``repro_torch.distributed.Mesh`` (``distributed.sdtw_sharded``): the
+    chunk carry is handed between neighbouring ranks, each rank's
+    segment scored by the kernel on the card. SPMD: every rank calls
+    ``sdtw`` with the same arguments and gets the whole answer.
 
 Dispatch rules (``impl="auto"``), the reference's rules with rule 3
 read for the card:
@@ -61,7 +65,7 @@ import torch
 
 from repro_torch.device import as_tensor, resolve_device, to_numpy
 from .distances import accum_dtype, big, result_dtype
-from .request import SdtwRequest, StreamRequest, _not_ported
+from .request import SdtwRequest, StreamRequest
 from .sdtw import sdtw_batch, sdtw_chunked
 from .traceback import DEFAULT_TRACE_CHUNK, AlignResult, traceback_path
 
@@ -167,8 +171,12 @@ def sdtw(queries, reference, qlens=None, *, metric: str = "abs_diff",
     (return ``(result, DispatchDecision)``; not for ragged lists).
     ``device`` is where it runs: ``None`` is the CUDA device (an error
     when none is present), ``"cpu"`` the plain PyTorch versions.
-    ``mesh``/``mesh_shape``/``n_micro`` are not ported yet (ROADMAP queue
-    1, item 12).
+    ``mesh`` (a ``repro_torch.distributed.Mesh``) or ``mesh_shape`` (an
+    int, ``(mp,)`` or ``(dp, mp)``, built by ``distributed.get_mesh``)
+    shards the reference over the mesh's ranks along ``ref_axis``;
+    ``n_micro`` is the pipeline's microbatch count per dp row. A sharded
+    call is SPMD: every rank of the mesh makes it with the same arguments
+    and every rank gets the whole answer.
 
     Returns (nq,) distances in the accumulator dtype — a 0-d tensor for a
     single 1-D query; a (dists, positions) pair or (dists, starts, ends)
@@ -227,7 +235,7 @@ def _execute_sdtw(req: SdtwRequest):
     impl = req.impl
     if impl == "auto":
         impl, source, reason, candidates = choose_impl_explained(
-            nq, n, m, backend=dev.type, chunk=req.chunk,
+            nq, n, m, backend=dev.type, mesh=req.mesh, chunk=req.chunk,
             has_exclusion=has_excl, top_k=req.top_k, tune=tune,
             metric=req.metric, dtype=dtype)
     else:
@@ -265,7 +273,7 @@ def _execute_sdtw(req: SdtwRequest):
             config, kcands = _kernel_decision(req, queries, reference, dev,
                                               tune)
             candidates = candidates or kcands
-    else:  # chunked
+    elif impl == "chunked":
         chunk = req.chunk
         if chunk is None and tune != "off":
             from repro_torch.tune import tuned_chunk
@@ -280,6 +288,27 @@ def _execute_sdtw(req: SdtwRequest):
                            return_positions=req.return_positions,
                            return_spans=req.return_spans,
                            excl_mode=req.excl_mode)
+    else:  # sharded
+        from repro_torch.distributed.sdtw_sharded import sdtw_sharded
+        n_micro = req.n_micro
+        if n_micro is None and tune != "off" and req.mesh is not None:
+            from repro_torch.tune import resolve_n_micro
+            sizes = dict(req.mesh.shape)
+            n_mp = int(sizes.pop(req.ref_axis, 1))
+            n_dp = int(np.prod(list(sizes.values()))) if sizes else 1
+            n_micro = resolve_n_micro(nq, n_dp, n_mp, n=n, m=m,
+                                      backend=dev.type, metric=req.metric,
+                                      dtype=dtype, mode=tune)
+        config = {"chunk": req.chunk or DEFAULT_CHUNK, "n_micro": n_micro}
+        out = sdtw_sharded(queries, reference, qlens, metric=req.metric,
+                           mesh=req.mesh, axis=req.ref_axis, n_micro=n_micro,
+                           chunk=req.chunk or DEFAULT_CHUNK,
+                           excl_lo=_normalize_excl(req.excl_lo, nq, dev),
+                           excl_hi=_normalize_excl(req.excl_hi, nq, dev),
+                           top_k=req.top_k, excl_zone=req.excl_zone,
+                           return_positions=req.return_positions,
+                           return_spans=req.return_spans,
+                           excl_mode=req.excl_mode, tune=tune, device=dev)
     if single:
         out = tuple(o[0] for o in out) if isinstance(out, tuple) else out[0]
     if req.explain:
@@ -333,14 +362,15 @@ def stream(queries, *, qlens=None, metric: str = "abs_diff",
     ``search_topk()`` answer over the samples fed so far (bitwise for
     int32, any feed partition); ``snapshot()`` / ``StreamSession.restore``
     give fault-tolerant serving, in the reference's snapshot format.
-    ``impl='pallas'`` streams fed tiles through the sDTW kernel's carry —
+    ``mesh``/``mesh_shape`` (or ``impl='sharded'``) open a
+    ``ShardedStreamSession`` over the mesh's ranks (SPMD: every rank opens
+    and feeds it alike). ``impl='pallas'`` streams fed tiles through the sDTW kernel's carry —
     top-K heaps, alerts and pruning scoring on its last-row capture;
     ``'auto'`` picks it on a CUDA device (per-query exclusion ranges as
     the kernel's column ban; an explicit ``'pallas'`` refuses them, as in
     the reference) and the row-scan loop elsewhere. ``device`` is where
     the session runs
-    (``None``: the CUDA device). ``mesh``/``mesh_shape``/
-    ``impl='sharded'`` are not ported yet (ROADMAP queue 1, item 12).
+    (``None``: the CUDA device).
     """
     return StreamRequest(
         queries=queries, qlens=qlens, metric=metric, impl=impl,
@@ -372,16 +402,14 @@ def align(queries, reference, qlens=None, *, metric: str = "abs_diff",
     Returns an ``AlignResult`` for a single 1-D query, else a list of
     ``AlignResult`` (one per query, in caller order; ragged lists
     accepted). Saturated matches (distance ≥ BIG) come back with
-    ``start = end = -1`` and ``path = None``. ``mesh`` is not ported yet
-    (ROADMAP queue 1, item 12).
+    ``start = end = -1`` and ``path = None``. ``mesh`` runs pass (1) on
+    the sharded engine (SPMD: every rank calls ``align`` alike).
     """
-    if mesh is not None:
-        raise _not_ported("align(mesh=) (the sharded driver)", 12)
     ragged = isinstance(queries, (list, tuple))
     single = not ragged and np.ndim(queries) == 1
     d, s, e = sdtw(queries, reference, qlens, metric=metric, impl=impl,
-                   chunk=chunk, ref_axis=ref_axis, return_spans=True,
-                   device=device)
+                   chunk=chunk, mesh=mesh, ref_axis=ref_axis,
+                   return_spans=True, device=device)
     d, s, e = (np.atleast_1d(to_numpy(x)) for x in (d, s, e))
     if ragged:
         qs = [to_numpy(q) for q in queries]
@@ -552,7 +580,9 @@ def _sdtw_ragged(req: SdtwRequest, dev: torch.device):
         res = sdtw(torch.from_numpy(padded), req.reference,
                    torch.from_numpy(qlens), metric=req.metric, impl=req.impl,
                    chunk=req.chunk, excl_lo=torch.from_numpy(lo[idxs]),
-                   excl_hi=torch.from_numpy(hi[idxs]), top_k=req.top_k,
+                   excl_hi=torch.from_numpy(hi[idxs]), mesh=req.mesh,
+                   ref_axis=req.ref_axis, n_micro=req.n_micro,
+                   top_k=req.top_k,
                    return_positions=req.return_positions,
                    return_spans=req.return_spans, excl_zone=req.excl_zone,
                    excl_mode=req.excl_mode, block_q=req.block_q,

@@ -45,7 +45,9 @@ def matsa(reference, queries=None, query_sizes=None, *,
     exceeds it (discords, §II-A). The distances come from
     ``repro_torch.core.engine.sdtw`` (``impl``, ``chunk`` and ``mesh``
     pass straight through); on the card that is the hand-written sDTW
-    kernel, with the exclusion zones as its per-query column ban.
+    kernel, with the exclusion zones as its per-query column ban. With a
+    ``mesh`` the call is SPMD: every rank of the mesh makes it with the
+    same arguments and gets the whole result.
     ``device`` is where it runs (``None``: the CUDA device).
 
     Self-join with ``exclusion=True``, ``impl='auto'`` and no ``mesh``

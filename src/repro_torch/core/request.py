@@ -6,11 +6,11 @@ offline call's arguments — ``op='sdtw'`` (``engine.sdtw``) or
 ``op='search_topk'`` (``repro_torch.search.search_topk``) — and
 ``validate()`` runs the front-door checks with the reference's messages;
 ``run()`` dispatches. ``StreamRequest`` is ``engine.stream``'s argument
-surface; ``open()`` returns the ``StreamSession``. ``coalesce_key()``
-is the serve tier's batching key (``repro_torch.serve``). What later
-slices of the port bring raises ``NotImplementedError`` naming its item
-in ``ROADMAP.md`` (queue 1): meshes, ``impl='sharded'`` and the sharded
-stream session (item 12).
+surface; ``open()`` returns the ``StreamSession`` or, with a mesh, the
+``ShardedStreamSession``. ``coalesce_key()`` is the serve tier's batching
+key (``repro_torch.serve``). A mesh is ``repro_torch.distributed.Mesh``,
+a grid of ranks; ``mesh_shape=`` builds one over the default process
+group (``resolve_mesh``).
 
 Argument semantics (as in the reference):
 
@@ -44,15 +44,25 @@ OPS = ("sdtw", "search_topk")
 TUNE_MODES = ("model", "measure", "off")
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"item {item})")
+def resolve_mesh(mesh, mesh_shape):
+    """``mesh_shape=`` builds the (dp, mp) mesh via the distributed layer
+    (collective: every rank resolves it)."""
+    if mesh_shape is None:
+        return mesh
+    if mesh is not None:
+        raise ValueError("pass either mesh= (a prebuilt jax Mesh) or "
+                         "mesh_shape= (built for you), not both")
+    from repro_torch.distributed.sharding import get_mesh
+    return get_mesh(mesh_shape)
 
 
-def _check_forced_impl(impl: str, *, chunk, top_k):
+def _check_forced_impl(impl: str, *, mesh, chunk, top_k):
     """Explicit precedence for forced impls: reject contradictory args."""
     if impl in ("rowscan", "wavefront"):
+        if mesh is not None:
+            raise ValueError(
+                f"impl={impl!r} is an in-core path but mesh= requests the "
+                "sharded driver; drop mesh= or use impl='sharded'/'auto'")
         if chunk is not None:
             raise ValueError(
                 f"impl={impl!r} runs in-core and would ignore chunk=; drop "
@@ -61,13 +71,55 @@ def _check_forced_impl(impl: str, *, chunk, top_k):
             raise ValueError(
                 f"impl={impl!r} does not carry a top-K heap; top_k= runs on "
                 "the chunked/sharded streaming paths (impl='auto' routes it)")
-    elif impl == "pallas" and top_k is not None:
+    elif impl == "pallas":
+        if mesh is not None:
+            raise ValueError(
+                "impl='pallas' is single-device; drop mesh= or use "
+                "impl='sharded'/'auto'")
+        if top_k is not None:
+            raise ValueError(
+                "impl='pallas' reports the single best match "
+                "(return_positions/return_spans); offline top_k= runs on "
+                "the chunked/sharded streaming paths — the kernel's "
+                "last-row capture serves top-K via repro.search "
+                "(engine_impl='pallas') and streaming sessions")
+    elif impl == "chunked" and mesh is not None:
         raise ValueError(
-            "impl='pallas' reports the single best match "
-            "(return_positions/return_spans); offline top_k= runs on "
-            "the chunked/sharded streaming paths — the kernel's "
-            "last-row capture serves top-K via repro.search "
-            "(engine_impl='pallas') and streaming sessions")
+            "impl='chunked' is single-device; drop mesh= or use "
+            "impl='sharded'/'auto'")
+
+
+def _check_sharded_args(*, mesh, impl, n_micro, excl_zone, top_k,
+                        return_positions):
+    """Reject options the sharded path cannot honour."""
+    sharded = mesh is not None or impl == "sharded"
+    if n_micro is not None and not sharded:
+        raise ValueError("n_micro= schedules the sharded systolic "
+                         "pipeline; pass mesh=/mesh_shape= (or "
+                         "impl='sharded') or drop n_micro=")
+    if not sharded:
+        return
+    if excl_zone is not None and np.ndim(excl_zone) != 0:
+        raise ValueError("the sharded driver takes a scalar excl_zone (or "
+                         "None for the per-query default); per-query zone "
+                         "arrays run on the single-device chunked path "
+                         "(drop mesh=)")
+    if return_positions and top_k is not None:
+        raise ValueError("top_k= already returns (dists, positions) on "
+                         "the sharded driver; return_positions=True adds "
+                         "nothing there — drop it (or use return_spans=)")
+
+
+def _mesh_fingerprint(mesh):
+    """Hashable identity of a mesh for coalesce keys — axis names and
+    ranks, as the sharded pipeline cache keys it."""
+    if mesh is None:
+        return None
+    try:
+        return (tuple(mesh.axis_names),
+                tuple(int(r) for r in np.ravel(mesh.ranks)))
+    except AttributeError:                     # test doubles / stubs
+        return ("mesh", id(mesh))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,10 +197,6 @@ class SdtwRequest:
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got "
                              f"{self.impl!r}")
-        if (self.mesh is not None or self.mesh_shape is not None
-                or self.impl == "sharded"):
-            raise _not_ported("the sharded driver (mesh=, mesh_shape=, "
-                              "impl='sharded')", 12)
         if self.excl_mode not in EXCL_MODES:
             raise ValueError(f"excl_mode must be one of {EXCL_MODES}, got "
                              f"{self.excl_mode!r}")
@@ -165,11 +213,12 @@ class SdtwRequest:
             raise ValueError("excl_mode='span' only affects top-K "
                              "suppression; pass top_k= (k=1 selection "
                              "never suppresses)")
-        _check_forced_impl(self.impl, chunk=self.chunk, top_k=self.top_k)
-        if self.n_micro is not None:
-            raise ValueError("n_micro= schedules the sharded systolic "
-                             "pipeline; pass mesh=/mesh_shape= (or "
-                             "impl='sharded') or drop n_micro=")
+        mesh = resolve_mesh(self.mesh, self.mesh_shape)
+        _check_forced_impl(self.impl, mesh=mesh, chunk=self.chunk,
+                           top_k=self.top_k)
+        _check_sharded_args(mesh=mesh, impl=self.impl, n_micro=self.n_micro,
+                            excl_zone=self.excl_zone, top_k=self.top_k,
+                            return_positions=self.return_positions)
         return self
 
     def _validate_search(self) -> "SdtwRequest":
@@ -189,8 +238,8 @@ class SdtwRequest:
                              "None for the per-query default); per-query "
                              "zone arrays run on engine.sdtw's chunked "
                              "path")
-        mesh = self.mesh is not None or self.mesh_shape is not None
-        if mesh and self.prune:
+        mesh = resolve_mesh(self.mesh, self.mesh_shape)
+        if mesh is not None and self.prune:
             raise ValueError("mesh= runs the sharded engine over every "
                              "chunk; pass prune=False explicitly (the LB "
                              "cascade is single-process)")
@@ -203,15 +252,17 @@ class SdtwRequest:
                              "exclusion zones; use engine_impl='rowscan'")
         if isinstance(self.queries, (list, tuple)) and self.qlens is not None:
             raise ValueError("qlens is implied by ragged (list) queries")
-        if mesh:
-            raise _not_ported("search_topk(mesh=) (the sharded engine)", 12)
         return self
 
     def normalized(self) -> "SdtwRequest":
-        """Validate and return the canonical form. The reference resolves
-        ``mesh_shape`` to a mesh here; the port has no meshes yet, so a
-        valid request is already canonical."""
-        return self.validate()
+        """Validate and return the canonical form: ``mesh_shape`` resolved
+        to a mesh, so dispatch and coalescing see one field."""
+        self.validate()
+        if self.mesh_shape is None:
+            return self
+        return dataclasses.replace(
+            self, mesh=resolve_mesh(self.mesh, self.mesh_shape),
+            mesh_shape=None)
 
     def run(self):
         """Validate and execute — identical to calling the keyword front
@@ -234,7 +285,9 @@ class SdtwRequest:
         return (self.op, self.metric, self.impl, self.chunk,
                 self.top_k, self.return_positions, self.return_spans,
                 self.excl_mode, self.block_q, self.block_m, self.tune,
-                self.ref_axis, self.n_micro, str(resolve_device(self.device)),
+                self.ref_axis, self.n_micro,
+                _mesh_fingerprint(resolve_mesh(self.mesh, self.mesh_shape)),
+                str(resolve_device(self.device)),
                 _scalar_or_id(self.excl_zone),
                 _scalar_or_id(self.excl_lo), _scalar_or_id(self.excl_hi),
                 bool(self.prune) if self.op == "search_topk" else None,
@@ -302,21 +355,37 @@ class StreamRequest:
         return cls(**kwargs)
 
     def validate(self) -> "StreamRequest":
-        """Front-door checks for ``engine.stream``: the sharded session is
-        not ported (item 12); then the session-argument checks."""
+        """Front-door checks for ``engine.stream``: the sharded-session
+        rejections (pruning, alerts, the envelope cache and ``span_cap``
+        are single-process), then the session-argument checks, in the
+        reference's order."""
         if self.impl not in STREAM_IMPLS:
             raise ValueError(
                 f"impl must be 'auto', 'rowscan', 'pallas' or 'sharded' "
                 f"for streaming, got {self.impl!r}")
-        sharded = (self.mesh is not None or self.mesh_shape is not None
-                   or self.impl == "sharded")
-        if self.n_micro is not None and not sharded:
+        mesh = resolve_mesh(self.mesh, self.mesh_shape)
+        if self.n_micro is not None and mesh is None \
+                and self.impl != "sharded":
             raise ValueError("n_micro= schedules the sharded systolic "
                              "pipeline; pass mesh=/mesh_shape= (or "
                              "impl='sharded') or drop n_micro=")
-        if sharded:
-            raise _not_ported("the sharded stream session (mesh=, "
-                              "mesh_shape=, impl='sharded')", 12)
+        if mesh is not None or self.impl == "sharded":
+            if self.prune:
+                raise ValueError("mesh= streams every chunk; the LB cascade "
+                                 "is single-process (drop prune=True)")
+            if self.alert_threshold is not None or self.on_alert is not None:
+                raise ValueError("alerts are single-process; drop mesh=")
+            if self.cache is not None or self.ref_key is not None:
+                raise ValueError("the envelope cache is built by the "
+                                 "single-process pruning path; "
+                                 "cache=/ref_key= have no effect on a "
+                                 "sharded session (drop them or drop "
+                                 "mesh=)")
+            if self.span_cap is not None:
+                raise ValueError("span_cap= only bounds the pruned path; a "
+                                 "sharded session streams every chunk "
+                                 "exactly")
+            return self
         return self.validate_session()
 
     def validate_session(self) -> "StreamRequest":
@@ -352,13 +421,25 @@ class StreamRequest:
 
     def open(self):
         """Validate and open the session — identical to
-        ``engine.stream(**kwargs)``. ``impl='auto'`` takes the kernel on a
-        CUDA device (top-K heaps, alerts and pruning all score on its
-        last-row capture; per-query exclusion ranges are its column ban),
-        and the rowscan tile loop elsewhere."""
+        ``engine.stream(**kwargs)``. A mesh (or ``impl='sharded'``) opens
+        the ``ShardedStreamSession``. Otherwise ``impl='auto'`` takes the
+        kernel on a CUDA device (top-K heaps, alerts and pruning all score
+        on its last-row capture; per-query exclusion ranges are its column
+        ban), and the rowscan tile loop elsewhere."""
         from repro_torch.device import resolve_device
-        from repro_torch.stream import StreamSession
+        from repro_torch.stream import ShardedStreamSession, StreamSession
         self.validate()
+        mesh = resolve_mesh(self.mesh, self.mesh_shape)
+        if mesh is not None or self.impl == "sharded":
+            return ShardedStreamSession(
+                self.queries, qlens=self.qlens, metric=self.metric,
+                mesh=mesh, axis=self.ref_axis, chunk=self.chunk,
+                n_micro=self.n_micro, top_k=self.top_k,
+                excl_zone=self.excl_zone, excl_mode=self.excl_mode,
+                return_spans=self.return_spans,
+                return_positions=self.return_positions,
+                excl_lo=self.excl_lo, excl_hi=self.excl_hi,
+                device=resolve_device(self.device))
         return StreamSession(
             self.queries, qlens=self.qlens, metric=self.metric,
             chunk=self.chunk, impl=self.impl, top_k=self.top_k,

@@ -293,7 +293,9 @@ def search_topk(queries, reference, k: int = 1, *, qlens=None,
     or 'pallas', the hand-written kernel; 'auto' is the kernel on the
     card, exclusion ranges included). ``device`` is where it runs:
     ``None`` is the CUDA device, ``"cpu"`` the plain PyTorch versions.
-    ``mesh`` is not ported yet (ROADMAP queue 1, item 12).
+    ``mesh`` (with ``prune=False``) scores every chunk on the sharded
+    engine over the mesh's ranks along ``ref_axis`` (SPMD: every rank
+    calls it alike).
 
     Returns a ``SearchResult`` whose distances/positions/starts are
     (nq, k) tensors on the device (or (k,) for a single 1-D query), best
@@ -365,18 +367,26 @@ def _execute_search(req: SdtwRequest) -> SearchResult:
         cap = (DEFAULT_SPAN_FACTOR * n if req.span_cap is None
                else int(req.span_cap))
         halo = max(1, -(-cap // c))
-        # The cached envelope belongs to the array actually searched — a
-        # normalized search must not share entries with a raw one under
-        # the same user key.
-        env_key = (None if req.ref_key is None
-                   else (req.ref_key, bool(req.normalize)))
-        env = cache.envelope(reference, c, key=env_key) if req.prune \
-            else None
-        d, p, s, stats = _search_padded(
-            bq, reference, bql, k=k, metric=metric, chunk=c,
-            prune=req.prune, halo=halo, excl_zone=req.excl_zone,
-            excl_mode=req.excl_mode, excl_lo=blo, excl_hi=bhi, env=env,
-            engine_impl=engine_impl)
+        if req.mesh is not None:
+            d, s, p = engine.sdtw(bq, reference, bql, metric=metric,
+                                  mesh=req.mesh, ref_axis=req.ref_axis,
+                                  chunk=c, top_k=k, excl_zone=req.excl_zone,
+                                  excl_mode=req.excl_mode, excl_lo=blo,
+                                  excl_hi=bhi, return_spans=True, device=dev)
+            stats = (-(-m // c), 0, 0, -(-m // c))
+        else:
+            # The cached envelope belongs to the array actually searched —
+            # a normalized search must not share entries with a raw one
+            # under the same user key.
+            env_key = (None if req.ref_key is None
+                       else (req.ref_key, bool(req.normalize)))
+            env = cache.envelope(reference, c, key=env_key) if req.prune \
+                else None
+            d, p, s, stats = _search_padded(
+                bq, reference, bql, k=k, metric=metric, chunk=c,
+                prune=req.prune, halo=halo, excl_zone=req.excl_zone,
+                excl_mode=req.excl_mode, excl_lo=blo, excl_hi=bhi, env=env,
+                engine_impl=engine_impl)
         for t in range(4):
             totals[t] += stats[t]
         outs.append((idxs, d, p, s))

@@ -44,8 +44,8 @@ never perturbs tile alignment) and returns numpy arrays, as the
 reference does. ``flush()`` pushes the tail through destructively; in
 pruned mode it is terminal. A mid-stream ``flush()`` on a k > 1 session
 shifts every later tile boundary, so the next ``feed()`` warns (top-1
-stays exact). ``ShardedStreamSession`` (ROADMAP item 12) is not ported
-yet.
+stays exact). ``ShardedStreamSession`` (``stream.sharded``) is the
+multi-rank sibling.
 """
 from __future__ import annotations
 
@@ -144,7 +144,8 @@ class _Bucket:
 
 def _pallas_step(queries, tile, qlens, kcarry, heap, j0, clen, zone, *,
                  metric, block_q, block_m, k, excl_span, track, want_lastrow,
-                 with_heap, excl_lo=None, excl_hi=None):
+                 with_heap, excl_lo=None, excl_hi=None, fold=None,
+                 tune="off"):
     """One streamed tile through the sDTW kernel: advance the kernel chunk
     carry and — when the session consumes candidate rows — fold the
     last-row capture into the top-K heap with the per-tile
@@ -152,7 +153,10 @@ def _pallas_step(queries, tile, qlens, kcarry, heap, j0, clen, zone, *,
     kernel's per-query ban (global columns, on the device), or ``None``.
     ``block_m`` is the wavefront kernel's staged tile; a rows- or
     chain-kernel launch stages none, so it is passed to wavefront launches
-    only."""
+    only. ``fold`` folds the first ``clen`` columns of the last row
+    ``fold`` at a time, in order (a sharded rank's segment of several
+    chunks merges as the reference's chunk loop does); ``None`` folds the
+    tile at once. ``tune`` is the launch's (``ops.tuned_launch``)."""
     from repro_torch.kernels.sdtw import choose_kernel, sdtw_cuda
     if choose_kernel(queries.shape[1]) != "wavefront":
         block_m = None
@@ -160,7 +164,7 @@ def _pallas_step(queries, tile, qlens, kcarry, heap, j0, clen, zone, *,
                     block_m=block_m, carry=kcarry, return_carry=True,
                     ref_offset=j0, ref_len=clen, track_start=track,
                     return_lastrow=want_lastrow, device=queries.device,
-                    excl_lo=excl_lo, excl_hi=excl_hi)
+                    excl_lo=excl_lo, excl_hi=excl_hi, tune=tune)
     if not want_lastrow:
         _, kc = out
         return kc, None, None
@@ -170,7 +174,12 @@ def _pallas_step(queries, tile, qlens, kcarry, heap, j0, clen, zone, *,
         _, kc, lrow = out
         lstart = None
     if with_heap:
-        heap = topk_fold_lastrow(heap, lrow, lstart, j0, k, zone, excl_span)
+        width = lrow.shape[1] if fold is None else fold
+        for c0 in range(0, lrow.shape[1] if fold is None else clen, width):
+            heap = topk_fold_lastrow(
+                heap, lrow[:, c0:c0 + width],
+                None if lstart is None else lstart[:, c0:c0 + width],
+                j0 + c0, k, zone, excl_span)
         return kc + tuple(heap), lrow, lstart
     return kc, lrow, lstart
 

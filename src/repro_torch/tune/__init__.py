@@ -26,18 +26,20 @@ from __future__ import annotations
 import dataclasses
 
 from .cache import cache_info, cache_keys, clear_tuning_cache
-from .cost import KernelCostModel, TunedConfig, bucket_key, get_cost_model
+from .cost import (KernelCostModel, TunedConfig, bucket_key, get_cost_model,
+                   tuned_n_micro)
 from .table import TuningTable, default_table, reset_tables
 from .tuner import (Resolution, canonical_backend, measured_search,
                     pretune_request, rank_incore, record_table, resolve,
-                    tuned_chunk)
+                    resolve_n_micro, tuned_chunk)
 
 __all__ = [
     "DispatchDecision", "KernelCostModel", "Resolution", "TunedConfig",
     "TuningTable", "bucket_key", "cache_info", "cache_keys",
     "canonical_backend", "clear_tuning_cache", "default_table",
     "get_cost_model", "measured_search", "pretune_request", "rank_incore",
-    "record_table", "reset_tables", "resolve", "tuned_chunk",
+    "record_table", "reset_tables", "resolve", "resolve_n_micro",
+    "tuned_chunk", "tuned_n_micro",
 ]
 
 

@@ -269,6 +269,16 @@ class KernelCostModel:
         return [None]
 
 
+def tuned_n_micro(nq: int, n_dp: int, n_mp: int) -> int:
+    """Pipeline-fill microbatch count: as many microbatches per dp row as
+    the systolic depth can overlap (``n_mp``) without any slot being pure
+    padding — the fill/drain bubble is ``(n_mp - 1) / (n_micro + n_mp -
+    1)`` of the schedule, so more (real) microbatches amortize it. Mirrors
+    ``distributed.sdtw_sharded.make_schedule``'s default so the engine
+    can report (and the table can override) the choice explicitly."""
+    return max(1, min(n_mp, -(-max(1, nq) // n_dp)))
+
+
 _MODELS: dict = {}
 
 

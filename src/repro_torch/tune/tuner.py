@@ -38,7 +38,7 @@ import numpy as np
 
 from .cache import cached
 from .cost import (TunedConfig, _pow2_bucket, bucket_key, get_cost_model,
-                   launch_label)
+                   launch_label, tuned_n_micro)
 from .table import TuningTable, default_table
 
 #: Measured-search bound on the request path: buckets of more DP cells
@@ -161,6 +161,22 @@ def rank_incore(nq: int, n: int, m: int, *, backend=None,
     """In-core impl choice (rowscan vs wavefront) for ``choose_impl``."""
     return resolve(nq, n, m, backend=backend, metric=metric, dtype=dtype,
                    mode=mode)
+
+
+def resolve_n_micro(nq: int, n_dp: int, n_mp: int, *, n: int, m: int,
+                    backend=None, metric: str = "abs_diff",
+                    dtype: str = "int32", mode: str = "model") -> int:
+    """Microbatch count for the sharded systolic schedule: a table entry
+    wins (clamped to the schedule's validity envelope), else the
+    pipeline-fill default."""
+    fill = tuned_n_micro(nq, n_dp, n_mp)
+    if mode == "off":
+        return fill
+    entry = resolve(nq, n, m, backend=backend, metric=metric, dtype=dtype,
+                    mode=mode).config.n_micro
+    if entry is None:
+        return fill
+    return max(1, min(int(entry), n_mp, max(1, nq) // max(1, n_dp) or 1))
 
 
 # ---------------------------------------------------------------------------

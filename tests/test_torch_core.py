@@ -86,6 +86,23 @@ def test_int32_wraps_like_the_reference(rng):
                jd.pointwise_distance(J(q), J(r), metric), metric)
 
 
+@pytest.mark.parametrize("impl", ["rowscan", "wavefront"])
+@pytest.mark.parametrize("spans", [False, True])
+def test_row0_beyond_int_big_mirrors_each_schedule(impl, spans):
+    """A one-sample query whose every distance exceeds INT_BIG: the row
+    scan reports min(d0) unsaturated at its column, the wavefront BIG at
+    -1 — the port mirrors each schedule, as the reference's own two
+    differ (a known reference behaviour, ROADMAP.md §3)."""
+    q = np.array([[2**29 + 100, 3, 4], [7, 1, 2]], np.int32)
+    r = np.array([0, -1, 2, 5, 1], np.int32)
+    qlens = np.array([1, 1], np.int32)
+    kw = dict(return_spans=spans, return_positions=not spans)
+    got = tsdtw.sdtw_batch(T(q), T(r), T(qlens), "abs_diff", impl, **kw)
+    want = jsdtw.sdtw_batch(J(q), J(r), J(qlens), "abs_diff", impl, **kw)
+    _equal(got, want, impl)
+    assert (int(got[0][0]) > td.INT_BIG) == (impl == "rowscan")
+
+
 def test_semiring_ops_bitwise(rng):
     BIG = td.INT_BIG
     vals = rng.integers(0, BIG + 1, (6, 40)).astype(np.int32)

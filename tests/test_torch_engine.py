@@ -279,17 +279,36 @@ def test_validation_messages_match_reference(kw, exc):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 12"), (dict(mesh_shape=(2,)), "item 12"),
-    (dict(impl="sharded"), "item 12"),
-    (dict(op="search_topk", top_k=1, prune=False, mesh=object()),
-     "item 12"),
-])
-def test_unported_options_name_their_roadmap_item(kw, item):
-    req = SdtwRequest(queries=np.zeros((1, 4), np.int32),
-                      reference=np.zeros(8, np.int32), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        req.run()
+@pytest.mark.parametrize("kw", [
+    dict(mesh_shape=(1, 1), impl="pallas"),
+    dict(mesh_shape=(1, 1), impl="rowscan"),
+    dict(mesh_shape=(1, 1), impl="chunked"),
+    dict(mesh_shape=(1, 1), mesh="m"),
+    dict(mesh_shape=(2,)),
+    dict(mesh_shape=(1, 1), top_k=2, return_positions=True),
+    dict(op="search_topk", top_k=1, mesh_shape=(1, 1)),
+    dict(op="search_topk", top_k=1, prune=True, mesh_shape=(1, 1)),
+], ids=str)
+def test_sharded_options_validate_as_in_the_reference(kw):
+    """The sharded engine's front-door checks (a mesh with an in-core or
+    single-device impl, with pruning, with both ``mesh`` and
+    ``mesh_shape``, a shape the world cannot hold) raise the JAX
+    package's messages."""
+    from repro.core.request import SdtwRequest as JRequest
+    if kw.get("mesh") == "m":
+        from repro.distributed import get_mesh as jget_mesh
+        from repro_torch.distributed import get_mesh
+        jkw, tkw = dict(kw, mesh=jget_mesh()), dict(kw, mesh=get_mesh())
+    else:
+        jkw = tkw = kw
+    with pytest.raises(ValueError) as want:
+        JRequest(queries=jnp.zeros((1, 4), jnp.int32),
+                 reference=jnp.zeros(8, jnp.int32), **jkw).run()
+    with pytest.raises(ValueError) as got:
+        SdtwRequest(queries=np.zeros((1, 4), np.int32),
+                    reference=np.zeros(8, np.int32), device="cpu",
+                    **tkw).run()
+    assert str(got.value) == str(want.value)
 
 
 def test_request_priority_and_tenant_as_in_the_reference(batch):
@@ -370,8 +389,13 @@ def test_matsa_errors():
                       (dict(mode="query_filtering"), "queries")):
         with pytest.raises(ValueError, match=match):
             tmatsa(r, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmatsa(r, mode="self_join", window=8, mesh=object(), device="cpu")
+    from repro.distributed import get_mesh as jget_mesh
+    from repro_torch.distributed import get_mesh
+    r = np.arange(32, dtype=np.int32) % 7
+    _equal(tmatsa(r, mode="self_join", window=8, mesh=get_mesh(),
+                  device="cpu").distances,
+           jmatsa(jnp.asarray(r), mode="self_join", window=8,
+                  mesh=jget_mesh()).distances)
 
 
 def test_workload_shapes_and_generator_match_reference():

@@ -433,8 +433,11 @@ def test_search_arg_validation(rng):
             _tsearch(q, r, **kw)
     with pytest.raises(ValueError, match="qlens"):
         _tsearch([q[0]], r, qlens=[4])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _tsearch(q, r, mesh=object(), prune=False)
+    from repro.distributed import get_mesh as jget_mesh
+    from repro_torch.distributed import get_mesh
+    got = _tsearch(q, r, k=2, mesh=get_mesh(), prune=False)
+    _same(got, jsearch(jnp.asarray(q), jnp.asarray(r), k=2,
+                       mesh=jget_mesh(), prune=False))
 
 
 def test_new_entry_points_default_to_cuda():

@@ -1,8 +1,6 @@
 """repro_torch.stream (online sessions) against the JAX package.
 
-Mirrors ``tests/test_stream.py`` (all but
-``test_sharded_session_single_device_mesh``: the sharded session is
-ROADMAP item 12): any partition of the reference fed through a port
+Mirrors ``tests/test_stream.py``: any partition of the reference fed through a port
 session reproduces the offline answer bitwise (int32), including ragged
 batches, prune on/off, polling, flushes, alerts, snapshot/restore — and
 snapshots move between the two packages in both directions. The port
@@ -402,10 +400,11 @@ def test_stream_argument_validation(rng):
         stream(q, impl="wavefront")
     with pytest.raises(ValueError, match="n_micro"):
         stream(q, n_micro=2)
-    for kw in (dict(impl="sharded"), dict(mesh=object()),
+    from repro_torch.distributed import get_mesh
+    from repro_torch.stream import ShardedStreamSession
+    for kw in (dict(impl="sharded"), dict(mesh=get_mesh()),
                dict(mesh_shape=(1, 1))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            stream(q, **kw)
+        assert isinstance(stream(q, **kw), ShardedStreamSession)
     s = stream(q, chunk=8)
     with pytest.raises(ValueError, match="1-D"):
         s.feed(np.zeros((2, 3), np.int32))
@@ -579,3 +578,48 @@ def test_stream_midflush_pending_survives_snapshot():
     s2 = StreamSession.restore(s.snapshot(), device="cpu")
     with pytest.warns(RuntimeWarning, match="mid-stream flush"):
         s2.feed(FLUSH_SHIFT_R[FLUSH_SHIFT_CUT:])
+
+
+def test_sharded_session_single_device_mesh(rng):
+    """The sharded session's feed/harvest/carry-handback path on the
+    default (one-rank) mesh — the degenerate pipeline, same protocol —
+    against the JAX package's; the multi-rank checks are in
+    ``tests/test_torch_distributed.py``."""
+    from repro.stream import ShardedStreamSession as JSharded
+    from repro_torch.stream import ShardedStreamSession
+    q = rng.integers(-10, 10, (3, 6)).astype(np.int32)
+    r = rng.integers(-10, 10, 97).astype(np.int32)
+    s = stream(q, impl="sharded", chunk=8, top_k=2, return_spans=True)
+    js = jstream(jnp.asarray(q), impl="sharded", chunk=8, top_k=2,
+                 return_spans=True)
+    for off in range(0, 97, 23):
+        s.feed(r[off:off + 23])
+        js.feed(r[off:off + 23])
+    res = s.results()
+    _same(res, js.results(), fields=("distances", "starts", "positions"))
+    want = jsdtw(jnp.asarray(q), jnp.asarray(r), chunk=8, top_k=2,
+                 return_spans=True)
+    for f, w in zip(("distances", "starts", "positions"), want):
+        np.testing.assert_array_equal(getattr(res, f), np.asarray(w))
+    s2 = ShardedStreamSession.restore(s.snapshot(), device="cpu")
+    np.testing.assert_array_equal(s2.results().distances, res.distances)
+    js2 = JSharded.restore(s.snapshot())
+    np.testing.assert_array_equal(np.asarray(js2.results().distances),
+                                  res.distances)
+    sp = stream(q, impl="sharded", chunk=8)
+    sp.feed(r)
+    np.testing.assert_array_equal(
+        sp.results().distances,
+        np.asarray(jsdtw(jnp.asarray(q), jnp.asarray(r), chunk=8,
+                         impl="chunked")))
+    s.flush()
+    with pytest.raises(RuntimeError, match="finalized"):
+        s.feed(r[:8])
+    for kw in (dict(), dict(top_k=2, excl_zone=np.array([1, 2, 3])),
+               dict(top_k=2, prune=True)):
+        qq = [q[0], q[1, :4]] if not kw else q
+        with pytest.raises(ValueError) as want:
+            jstream(qq if not kw else jnp.asarray(q), impl="sharded", **kw)
+        with pytest.raises(ValueError) as got:
+            stream(qq, impl="sharded", **kw)
+        assert str(got.value) == str(want.value)
