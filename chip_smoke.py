@@ -115,6 +115,19 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      sharded stream with snapshot and restore at world 4, every rank's
      answers bitwise phases 6, 9 and 10, the kernel's K3 launched on
      every rank and no plain schedule run;
+ 19. the LM serving path (``repro_torch.models``, plain PyTorch, no
+     kernel of its own): each family's 2-layer cut at full width
+     (llama3.2-1b, granite-moe-1b-a400m, mamba2-780m; zamba2-2.7b at one
+     group of 6) against the CPU at fp32 with the same weights, 2 prompts
+     of 32 and 4 decode steps; then the ten configurations at full width
+     — full depth for the six whose fp32 master and bf16 compute copy fit
+     the card, 4 layers for phi3-medium-14b, qwen3-moe-30b-a3b,
+     qwen1.5-32b and granite-34b — each built from a seeded generator on
+     the card, prefill's last logits against ``forward``'s at fp32, then 8
+     prompts of 512 and 64 greedy decode steps in bf16, timed (prefill
+     ms, decode ms a step, tokens/s, peak memory) beside their bounds;
+     llama3.2-1b's prompts come from ``TSAFilteredLM``, whose sDTW filter
+     runs the kernel (path ``lm_tsa_filter``);
      then the JSON lines.
 
 Every path runs on ``kernel="auto"``'s choice under the engine's default
@@ -1957,6 +1970,304 @@ def phase_sharded(torch, np, ops, kpkg, human, ecg, dev, root):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the LM serving path.
+# ---------------------------------------------------------------------------
+
+#: Served at full width and full depth: the fp32 master and its bf16
+#: compute copy fit the card (4.7-19.4 GB).
+LM_FULL_DEPTH = ("llama3.2-1b", "granite-moe-1b-a400m", "mamba2-780m",
+                 "zamba2-2.7b", "internvl2-2b", "musicgen-large")
+#: Served at full width with the depth cut to ``LM_CUT_LAYERS`` layers:
+#: full depth needs 88-282 GB of fp32 master plus bf16 copy.
+LM_CUT = ("phi3-medium-14b", "qwen3-moe-30b-a3b", "qwen1.5-32b",
+          "granite-34b")
+LM_CUT_LAYERS = 4
+#: One arch a family for the card-against-CPU check at a 2-layer cut of
+#: full width (the hybrid at one group of ``attn_every`` layers).
+LM_FAMILIES = {"dense": "llama3.2-1b", "moe": "granite-moe-1b-a400m",
+               "ssm": "mamba2-780m", "hybrid": "zamba2-2.7b"}
+#: The served load: prompts × prompt tokens, then greedy decode steps.
+LM_SERVE = dict(batch=8, prompt_len=512, gen=64)
+#: Dense bf16 tensor-core peak of an H100 SXM (NVIDIA's data sheet), op/s.
+BF16_FLOPS = 989e12
+#: fp32 tolerances on the card: against the CPU (logits; cache leaves as
+#: a share of the leaf's largest magnitude) and prefill's last logits
+#: against ``forward``'s on the card. Measured on an H100 (TF32 off): at
+#: most 4.4e-5, 8.4e-6 and 2.2e-5, at logit scales of 3-5.
+LM_CPU_ATOL, LM_CPU_CACHE_FRAC, LM_PREFILL_ATOL = 1e-3, 1e-3, 1e-4
+
+
+def lm_cut(cfg, layers: int):
+    """``cfg`` at ``layers`` layers (a hybrid keeps whole groups)."""
+    import dataclasses
+    layers = max(layers, cfg.attn_every)
+    return dataclasses.replace(cfg, n_layers=layers - layers %
+                               max(cfg.attn_every, 1))
+
+
+def lm_prompts(torch, cfg, b: int, s: int, gen, dev):
+    """Seeded prompts: token ids, or embeddings for a stub frontend."""
+    if cfg.frontend == "stub":
+        return {"embeddings": torch.randn((b, s, cfg.d_model), generator=gen,
+                                          device=dev)}
+    return {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                    device=dev, dtype=torch.int32)}
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
+
+
+def lm_card_vs_cpu(torch, tm, cfg, dev, seed: int):
+    """The same weights (drawn on the card, copied to the CPU) serve 2
+    prompts of 32 tokens and 4 decode steps of fixed tokens at fp32 on the
+    card and on the CPU. Returns the largest logit difference, the logits'
+    scale and the largest cache-leaf difference as a share of the leaf."""
+    from repro_torch.models.layers import Init
+    run = tm.RunConfig(compute_dtype=torch.float32,
+                       cache_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    card = tm.init_lm(cfg, gen, dev)
+    cpu = tm.LM(cfg, Init(torch.device("cpu")))
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = {k: v.cpu() for k, v in lm_prompts(torch, cfg, 2, 32, gen,
+                                                dev).items()}
+    steps = torch.randint(0, cfg.vocab, (4, 2), generator=gen, device=dev,
+                          dtype=torch.int32).cpu()
+    out = {}
+    for lm in (card, cpu):
+        logits, cache = tm.prefill(cfg, lm, batch, 32 + 5, run)
+        seen = [logits]
+        for tok in steps:
+            logits, cache = tm.decode_step(cfg, lm, tok, cache, run)
+            seen.append(logits)
+        out[lm.device.type] = (torch.stack(seen).cpu(),
+                               {k: v.cpu() for k, v in _leaves(cache)})
+    (lc, cc), (lp, cp) = out[dev.type], out["cpu"]
+    err = float((lc - lp).abs().max())
+    cache_frac = max(float((cc[k].float() - cp[k].float()).abs().max())
+                     / max(float(cp[k].float().abs().max()), 1e-6)
+                     for k in cp)
+    if not torch.equal(cc["pos"], cp["pos"]):
+        raise AssertionError(f"{cfg.name}: cache positions differ")
+    return err, float(lp.abs().max()), cache_frac
+
+
+def lm_bound_ms(cfg, lm, b: int, s: int, gen: int, experts):
+    """Least times of prefill (b prompts of s) and of one decode step at
+    the run's mean context (b × (s + gen/2)), in ms, and what bounds each.
+
+    Prefill: 2 op a weight a token for the matmuls the tokens need (the
+    unembedding for the last token only; a MoE token's top-k experts;
+    the hybrid's shared block once a group) plus the causal attention
+    products (4·H·Dh op a query-key pair), at the bf16 peak; against the
+    bf16 weights read once. Decode: the bytes a step must move — every
+    bf16 weight it uses read once (the untied input table only for the
+    b rows it gathers; a MoE layer's experts only those ``experts``
+    counts routed to in one step), the bf16 K/V of the context, the fp32
+    SSM state read and written, the fp32 logits written — against its
+    matmul operations."""
+    d, v = cfg.d_model, cfg.vocab
+    total = sum(p.numel() for p in lm.parameters())
+    table = v * d
+    expert = 3 * d * cfg.d_ff
+    untied = 0 if cfg.tie_embeddings else table
+    groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    shared = sum(p.numel() for p in lm.shared.parameters()) if groups else 0
+    n_attn = groups if groups else (0 if cfg.has_ssm else cfg.n_layers)
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    # matmul weights a token uses, without the tables
+    body = total - table - untied + shared * (groups - 1)
+    if cfg.has_moe:
+        body -= cfg.n_layers * (cfg.n_experts - cfg.topk) * expert
+    read = total - untied                       # bf16 weights, read once
+    pairs = b * s * (s + 1) // 2
+    pre_ops = 2 * b * s * body + 2 * b * d * v + 4 * h * dh * pairs * n_attn
+    pre_t = (pre_ops / BF16_FLOPS, 2 * read / HBM_BYTES_PER_S)
+    ctx = s + gen // 2
+    if untied:
+        read += b * d                           # the rows gathered
+    if cfg.has_moe:
+        read -= sum(cfg.n_experts - e for e in experts) * expert
+    kv = 2 * n_attn * b * ctx * cfg.n_kv_heads * dh * 2
+    ssm = (2 * cfg.n_layers * b * cfg.n_ssm_heads * cfg.ssm_head_dim
+           * cfg.ssm_state * 4) if cfg.has_ssm else 0
+    dec_bytes = 2 * read + kv + ssm + b * v * 4
+    dec_ops = 2 * b * (body + d * v) + 4 * h * dh * b * ctx * n_attn
+    dec_t = (dec_ops / BF16_FLOPS, dec_bytes / HBM_BYTES_PER_S)
+
+    def bound(t):
+        return max(t) * 1e3, "operations" if t[0] > t[1] else "bytes"
+    return bound(pre_t), bound(dec_t), dec_bytes
+
+
+def phase_lm(torch, np, ops, dev, seed: int, serve=None):
+    """Phase 19: the LM serving path on the card. Each family's 2-layer
+    cut at full width against the CPU at fp32 (same weights); then every
+    configuration at full width — full depth for ``LM_FULL_DEPTH``, cut to
+    ``LM_CUT_LAYERS`` for ``LM_CUT`` — built from a seeded generator on
+    the card: prefill's last logits against ``forward``'s at fp32 on 2
+    prompts of 64, then ``serve`` (``LM_SERVE``: 8 prompts of 512, 64
+    greedy decode steps) in bf16 compute and a bf16 cache, timed after a
+    warm-up, with
+    the host's time to enqueue a decode step (near the step's time: the
+    host, not the card, bounds decode).
+    llama3.2-1b's prompts come through ``TSAFilteredLM``, whose sDTW
+    filter runs the kernel (its launches are the path ``lm_tsa_filter``).
+    Returns ({path: launches}, {config: numbers})."""
+    from repro_torch import models as tm
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, TSAFilteredLM
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train import make_serve_step
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: fp32 would not compare")
+    cuda = dev.type == "cuda"
+    serve = serve or LM_SERVE
+    b, s, n_gen = serve["batch"], serve["prompt_len"], serve["gen"]
+    check_len = min(64, s)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_phase = time.time()
+    for fam, name in LM_FAMILIES.items():
+        cfg = lm_cut(get_arch(name), 2)
+        t0 = time.time()
+        err, scale, frac = lm_card_vs_cpu(torch, tm, cfg, dev, seed)
+        log(f"phase 19: {name} cut to {cfg.n_layers} layers, card vs CPU at "
+            f"fp32 (2 prompts of 32, 4 decode steps): logits max |diff| "
+            f"{err:.3e} (scale {scale:.3f}), cache leaves {frac:.2e} of "
+            f"their largest, in {time.time() - t0:.1f} s")
+        if err > LM_CPU_ATOL or frac > LM_CPU_CACHE_FRAC:
+            raise AssertionError(f"phase 19: {name} card != CPU: {err}, "
+                                 f"{frac}")
+    run16 = tm.RunConfig()
+    run32 = tm.RunConfig(compute_dtype=torch.float32,
+                         cache_dtype=torch.float32)
+    out, launches = {}, {}
+    for i, name in enumerate(LM_FULL_DEPTH + LM_CUT):
+        full = get_arch(name)
+        cfg = full if name in LM_FULL_DEPTH else lm_cut(full, LM_CUT_LAYERS)
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        held = torch.cuda.memory_allocated() if cuda else 0
+        t0 = time.time()
+        lm = tm.init_lm(cfg, gen, dev)
+        sync()
+        init_s = time.time() - t0
+        if name == "llama3.2-1b":
+            ops.reset_launches()
+            t0 = time.time()
+            data = TSAFilteredLM(DataConfig(seq_len=s, global_batch=b,
+                                            vocab=cfg.vocab), device=dev)
+            batch = {"tokens": torch.as_tensor(data.batch_at(0)["tokens"],
+                                               device=dev)}
+            sync()
+            filt_s = time.time() - t0
+            launches["lm_tsa_filter"] = dict(ops.LAUNCHES)
+            k1 = {k: n for k, n in ops.LAUNCHES.items() if n}
+            if cuda and not any(k.endswith("_plain") for k in k1):
+                raise AssertionError(f"phase 19: the filter launched no K1 "
+                                     f"kernel: {k1}")
+            log(f"phase 19: TSAFilteredLM(seq_len={s}, global_batch={b}) on "
+                f"the card: {data.filter_stats} windows of {data.window} "
+                f"kept in {filt_s:.3f} s, launches {k1}")
+        else:
+            batch = lm_prompts(torch, cfg, b, s, gen, dev)
+        small = {k: v[:2, :check_len] for k, v in batch.items()}
+        full_lg, _ = tm.forward(cfg, lm, small, run32)
+        pre_lg, _ = tm.prefill(cfg, lm, small, check_len + 1, run32)
+        check = float((pre_lg - full_lg[:, -1]).abs().max())
+        if not check <= LM_PREFILL_ATOL:
+            raise AssertionError(f"phase 19: {name} prefill != forward at "
+                                 f"fp32: {check}")
+        del full_lg, pre_lg
+        step = make_serve_step(cfg, run16)
+        max_len = s + n_gen + 1
+        logits, cache = tm.prefill(cfg, lm, batch, max_len, run16)  # warm-up
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for _ in range(2):
+            tok, _, cache = step(lm, tok, cache)
+        del logits, cache
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = tm.prefill(cfg, lm, batch, max_len, run16)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        toks, enqueue = [tok], []
+        t0 = time.perf_counter()
+        for _ in range(n_gen):
+            t1 = time.perf_counter()
+            tok, logits, cache = step(lm, tok, cache)
+            enqueue.append(time.perf_counter() - t1)
+            toks.append(tok)
+        sync()
+        decode_s = time.perf_counter() - t0
+        # the serving run's peak above what the process held before
+        peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+        toks = torch.stack(toks, 1)
+        if not (bool(torch.isfinite(logits).all())
+                and bool(((toks >= 0) & (toks < cfg.vocab)).all())
+                and int(cache["pos"][0]) == s + n_gen):
+            raise AssertionError(f"phase 19: {name}: non-finite logits, "
+                                 f"tokens out of range or a wrong position")
+        experts = []
+        if cfg.has_moe:          # one more step, counting routed experts
+            route = moe_mod._route
+
+            def counting(x, *a):
+                g, ids, aux = route(x, *a)
+                experts.append(int(ids.unique().numel()))
+                return g, ids, aux
+            moe_mod._route = counting
+            try:
+                step(lm, tok, cache)
+            finally:
+                moe_mod._route = route
+        (pre_b, pre_by), (dec_b, dec_by), dec_bytes = lm_bound_ms(
+            cfg, lm, b, s, n_gen, experts)
+        row = {"family": cfg.family, "layers": cfg.n_layers,
+               "full_layers": full.n_layers,
+               "params": sum(p.numel() for p in lm.parameters()),
+               "init_s": init_s, "prefill_ms": prefill_s * 1e3,
+               "decode_ms_per_token": decode_s * 1e3 / n_gen,
+               "decode_enqueue_ms": statistics.median(enqueue) * 1e3,
+               "tokens_per_s": b * n_gen / decode_s,
+               "peak_mem_gb": peak / 1e9, "prefill_check_err": check,
+               "prefill_bound_ms": pre_b, "prefill_bound_by": pre_by,
+               "decode_bound_ms": dec_b, "decode_bound_by": dec_by,
+               "decode_bytes": dec_bytes,
+               "experts_a_layer": (min(experts), max(experts))
+               if experts else None}
+        out[name] = row
+        log(f"phase 19: {name} ({cfg.family}, {cfg.n_layers}/"
+            f"{full.n_layers} layers, {row['params'] / 1e9:.3f} B "
+            f"parameters, built in {init_s:.2f} s): prefill {b}x{s} "
+            f"{row['prefill_ms']:.3f} ms (bound {pre_b:.3f}, {pre_by}), "
+            f"decode {row['decode_ms_per_token']:.3f} ms a step (bound "
+            f"{dec_b:.3f} ms, {dec_by}: {dec_bytes / 1e9:.3f} GB; host "
+            f"enqueue {row['decode_enqueue_ms']:.3f} ms a step), "
+            f"{row['tokens_per_s']:.1f} tokens/s, peak "
+            f"{row['peak_mem_gb']:.3f} GB; prefill == forward at fp32 "
+            f"(max |diff| {check:.2e}); tokens {toks[0, :8].tolist()}")
+        del lm, cache, logits, batch, small
+        if cuda:
+            torch.cuda.empty_cache()
+    log(f"phase 19: total {time.time() - t_phase:.1f} s")
+    return launches, out
+
+
 def ptxas_summary(log_text: str):
     """``{kernel name: (registers, spill stores, spill loads)}`` from
     nvcc's ``-Xptxas -v`` output."""
@@ -2392,6 +2703,11 @@ def main() -> int:
         (q_e, ref_e, (stream_res.distances, stream_res.starts,
                       stream_res.positions), ecg_ms / 1e3), dev,
         pathlib.Path(__file__).resolve().parent))
+
+    # Phase 19: the LM serving path, its llama3.2-1b prompts through the
+    # sDTW filter.
+    lm_paths, lm_out = phase_lm(torch, np, ops, dev, args.seed)
+    path_by.update(lm_paths)
     path_by = {"matsa_human": human_launches, "topk_fold_human":
                topk_launches, "sdtw_spans_ecg": ecg_launches,
                "long_queries": long_launches, **path_by}
@@ -2442,6 +2758,7 @@ def main() -> int:
         f"{spans['chain']:.3f} ms, wavefront {spans['wavefront']:.3f} ms "
         f"({spans['wavefront'] / spans['chain']:.2f}x), K2 bound "
         f"{long_out['spans_bound_ms']:.3f} ms")
+    log("lm serving (phase 19): " + json.dumps(lm_out))
     rows = []
     src = {"rows": "src/repro_torch/kernels/sdtw/csrc/sdtw_rows.cu",
            "chain": "src/repro_torch/kernels/sdtw/csrc/sdtw_chain.cu",

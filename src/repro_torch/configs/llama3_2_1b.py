@@ -1,0 +1,20 @@
+"""llama3.2-1b — small llama3 dense decoder.
+
+16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256
+[hf:meta-llama/Llama-3.2-1B].
+"""
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="llama3.2-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=128256,
+    head_dim=64,
+    rope_theta=500_000.0,
+    source="hf:meta-llama/Llama-3.2-1B",
+))

@@ -1,0 +1,2 @@
+"""Launch drivers of the LM stack (``python -m
+repro_torch.launch.serve_lm``)."""

@@ -1,0 +1,136 @@
+"""Shared neural-net layers in PyTorch (the JAX package's
+``models/layers.py``).
+
+Numerics policy, as in the reference: parameters are fp32 masters, compute
+runs in the compute dtype (bf16 unless asked otherwise), and reductions
+and norms run in fp32. Weights are stored ``(in, out)`` as the reference
+stores them, so a layer is ``x @ w``.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Init:
+    """Parameter factory for a model's constructor: seeded normal draws
+    from ``generator`` on ``device``, or uninitialised storage in ``dtype``
+    when ``generator`` is None (a model about to be loaded or cast into)."""
+
+    def __init__(self, device, generator=None, dtype=torch.float32):
+        self.device, self.generator, self.dtype = device, generator, dtype
+
+    def _empty(self, shape):
+        return torch.empty(shape, device=self.device, dtype=self.dtype)
+
+    def normal(self, shape, fan_in=None, scale=1.0) -> nn.Parameter:
+        """``scale`` times ``normal_init``: N(0, 1/fan_in) draws."""
+        if self.generator is None:
+            return nn.Parameter(self._empty(shape))
+        return nn.Parameter(scale * normal_init(
+            shape, fan_in, self.generator, self.device, self.dtype))
+
+    def const(self, values) -> nn.Parameter:
+        """A parameter holding ``values`` (a tensor made on the CPU)."""
+        if self.generator is None:
+            return nn.Parameter(self._empty(tuple(values.shape)))
+        return nn.Parameter(values.to(device=self.device, dtype=self.dtype))
+
+    def ones(self, n: int) -> nn.Parameter:
+        return self.const(torch.ones(n))
+
+    def zeros(self, n: int) -> nn.Parameter:
+        return self.const(torch.zeros(n))
+
+
+def normal_init(shape, fan_in=None, generator=None, device=None,
+                dtype=torch.float32) -> torch.Tensor:
+    """N(0, 1/fan_in) draws from an explicit ``torch.Generator``."""
+    fan_in = fan_in if fan_in is not None else shape[0]
+    scale = 1.0 / np.sqrt(max(1, fan_in))
+    return scale * torch.randn(shape, generator=generator, device=device,
+                               dtype=dtype)
+
+
+def rms_norm(x, weight, eps: float):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """SwiGLU FF."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, init: Init, d_model: int, d_ff: int):
+        super().__init__()
+        self.w_gate = init.normal((d_model, d_ff), d_model)
+        self.w_up = init.normal((d_model, d_ff), d_model)
+        self.w_down = init.normal((d_ff, d_model), d_ff)
+
+    def forward(self, x):
+        return swiglu(x, self.w_gate, self.w_up, self.w_down)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (llama-style, rotate-half).
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_frequencies_on(head_dim: int, theta: float, device: torch.device):
+    """fp32 frequencies on ``device``, made once: no host copy (and so no
+    stream sync) and no extra launches in a decode step."""
+    return torch.as_tensor(rope_frequencies(head_dim, theta),
+                           dtype=torch.float32, device=device)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: (..., S) int32. fp32 inside."""
+    freqs = _rope_frequencies_on(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs           # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding.
+# ---------------------------------------------------------------------------
+
+class Embedding(nn.Module):
+    def __init__(self, init: Init, vocab: int, d_model: int):
+        super().__init__()
+        self.table = init.normal((vocab, d_model), fan_in=1, scale=0.02)
+
+
+def embed(params, tokens, compute_dtype=torch.bfloat16):
+    return params.table.to(compute_dtype)[tokens]
+
+
+def unembed(params, x):
+    """Logits in fp32 from the (compute-dtype-rounded) table."""
+    return x.float() @ params.table.float().T
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Token-mean cross entropy; logits fp32 (B, S, V), labels (B, S)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,0 +1,344 @@
+"""Model zoo in PyTorch (the JAX package's ``models/model.py``): any
+``ArchConfig`` as a servable LM.
+
+Families: dense (llama/phi/qwen/granite), moe (qwen3/granite MoE), ssm
+(mamba2), hybrid (zamba2: an SSM backbone plus one shared attention block
+invoked every ``attn_every`` layers), audio/vlm (a dense backbone with a
+stub frontend: inputs may be precomputed embeddings instead of token ids).
+
+An ``LM`` holds fp32 master parameters in a ``ModuleList`` of per-family
+blocks, named as the reference's parameter tree (``blocks.<l>.attn.wq``
+is layer l of the reference's stacked ``blocks/attn/wq``). Compute runs on
+a copy cast to the compute dtype, as the reference's ``_cast_params``;
+``prefill`` makes that copy once and the ``decode_step``s after it reuse
+it (nothing changes the weights while serving), where the reference casts
+on every call. The layer stack is a Python loop; ``RunConfig.scan_layers``
+and ``pad_heads`` are accepted and change nothing here (the reference
+gives the same answer either way, and pads heads only with a mesh).
+
+Forward only: autograd and rematerialisation come with training.
+
+The serving cache has the reference's layout and dtypes: ``pos`` (B,)
+int32; ``k``/``v`` (n_layers, B, max_len, Hkv, Dh) for attention stacks;
+``ssm`` {``h`` (n_layers, B, H, P, N) fp32, ``conv`` (n_layers, B, W-1,
+d_inner+2N)} for SSM stacks, plus ``shared_k``/``shared_v`` (groups, B,
+max_len, Hkv, Dh) for the hybrid. ``decode_step`` updates it in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from ..device import as_tensor, resolve_device
+from . import attention as attn_mod
+from . import moe as moe_mod
+from . import ssm as ssm_mod
+from .layers import (Embedding, Init, SwiGLU, cross_entropy_loss, embed,
+                     rms_norm, unembed)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Execution knobs (orthogonal to the architecture)."""
+    compute_dtype: Any = torch.bfloat16
+    remat: str = "full"          # none | full | dots (training only)
+    attn_mode: str = "dense"     # dense | chunked | triangular
+    attn_chunk: int = 1024
+    cache_dtype: Any = torch.bfloat16
+    scan_layers: bool = True     # accepted; the stack is always a loop
+    pad_heads: bool = False      # accepted; pads only with a mesh
+
+
+DEFAULT_RUN = RunConfig()
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One attention layer: dense, audio, vlm (SwiGLU) or moe."""
+
+    def __init__(self, init: Init, cfg):
+        super().__init__()
+        self.attn = attn_mod.Attention(init, cfg)
+        self.ln1 = init.ones(cfg.d_model)
+        self.ln2 = init.ones(cfg.d_model)
+        if cfg.has_moe:
+            self.moe = moe_mod.MoE(init, cfg)
+        else:
+            self.mlp = SwiGLU(init, cfg.d_model, cfg.d_ff)
+
+
+class SSMBlock(nn.Module):
+    """One SSM layer (ssm and hybrid families)."""
+
+    def __init__(self, init: Init, cfg):
+        super().__init__()
+        self.ssm = ssm_mod.SSM(init, cfg)
+        self.ln = init.ones(cfg.d_model)
+
+
+class SharedBlock(nn.Module):
+    """Zamba2's shared attention+FF block (one set of weights)."""
+
+    def __init__(self, init: Init, cfg):
+        super().__init__()
+        self.attn = attn_mod.Attention(init, cfg)
+        self.mlp = SwiGLU(init, cfg.d_model, cfg.d_ff)
+        self.ln1 = init.ones(cfg.d_model)
+        self.ln2 = init.ones(cfg.d_model)
+
+
+class LM(nn.Module):
+    def __init__(self, cfg, init: Init):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = Embedding(init, cfg.vocab, cfg.d_model)
+        block = SSMBlock if cfg.has_ssm else Block
+        self.blocks = nn.ModuleList(block(init, cfg)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = init.ones(cfg.d_model)
+        if cfg.family == "hybrid":
+            self.shared = SharedBlock(init, cfg)
+        if not cfg.tie_embeddings:
+            self.unembed = Embedding(init, cfg.vocab, cfg.d_model)
+        self._compute = None     # (dtype, LM): the cast copy prefill made
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+    def compute_params(self, dtype, refresh: bool = False) -> "LM":
+        """This model's parameters in ``dtype`` (the reference's
+        ``_cast_params``): the model itself for its own dtype, else a cast
+        copy, kept until ``refresh`` or another dtype asks for a new one."""
+        if dtype == self.final_norm.dtype:
+            return self
+        if refresh or self._compute is None or self._compute[0] != dtype:
+            self._compute = None          # free the old copy first
+            with torch.no_grad():
+                copy = LM(self.cfg, Init(self.device, None, dtype))
+                for dst, src in zip(copy.parameters(), self.parameters()):
+                    dst.requires_grad_(False).copy_(src)
+            self._compute = (dtype, copy)
+        return self._compute[1]
+
+
+def init_lm(cfg, generator: torch.Generator = None, device=None) -> LM:
+    """A model with fp32 master parameters drawn from ``generator`` (a
+    ``torch.Generator`` on ``device``; seed 0 when None)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        return LM(cfg, Init(dev, generator))
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _ffn(cfg, bp, x):
+    """The block's FF half on its normed input → (out, aux)."""
+    if cfg.has_moe:
+        return moe_mod.moe_mlp(bp.moe, cfg, x)
+    return bp.mlp(x), None
+
+
+def _dense_block(cfg, run, bp, x, positions):
+    h, kv = attn_mod.attention(bp.attn, cfg, rms_norm(x, bp.ln1, cfg.norm_eps),
+                               positions, run.attn_mode, run.attn_chunk)
+    x = x + h
+    h, aux = _ffn(cfg, bp, rms_norm(x, bp.ln2, cfg.norm_eps))
+    return x + h, aux, kv
+
+
+def _shared_block(cfg, run, sp, x, positions):
+    h, kv = attn_mod.attention(sp.attn, cfg, rms_norm(x, sp.ln1, cfg.norm_eps),
+                               positions, run.attn_mode, run.attn_chunk)
+    x = x + h
+    return x + sp.mlp(rms_norm(x, sp.ln2, cfg.norm_eps)), kv
+
+
+def _embed_inputs(params, batch, run):
+    dev = params.device
+    if "embeddings" in batch:
+        return as_tensor(batch["embeddings"], dev, run.compute_dtype)
+    tokens = as_tensor(batch["tokens"], dev).long()
+    return embed(params.embed, tokens, run.compute_dtype)
+
+
+def _positions(b, s, device):
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def _logits(params, cfg, x):
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    table = params.unembed if not cfg.tie_embeddings else params.embed
+    return unembed(table, x)
+
+
+def _layers(cfg, run, params, x, positions, ssm_state=None, kv_out=None):
+    """The layer stack over a full sequence → (x, aux sum).
+
+    ``ssm_state(l)`` gives layer l's serving state to continue (and
+    takes the new one back); ``kv_out(i, k, v)`` receives attention
+    layer (or hybrid group) i's K/V. Both are for ``prefill``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def ssm_layer(l, x):
+        bp = params.blocks[l]
+        xin = rms_norm(x, bp.ln, cfg.norm_eps)
+        if ssm_state is None:
+            return x + ssm_mod.ssm_forward(bp.ssm, cfg, xin)
+        h, st = ssm_mod.ssm_forward(bp.ssm, cfg, xin, ssm_state(l))
+        ssm_state(l, st)
+        return x + h
+
+    if cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            x = ssm_layer(l, x)
+    elif cfg.family == "hybrid":
+        for g in range(cfg.n_layers // cfg.attn_every):
+            x, kv = _shared_block(cfg, run, params.shared, x, positions)
+            if kv_out is not None:
+                kv_out(g, *kv)
+            for j in range(cfg.attn_every):
+                x = ssm_layer(g * cfg.attn_every + j, x)
+    else:
+        for l, bp in enumerate(params.blocks):
+            x, a, kv = _dense_block(cfg, run, bp, x, positions)
+            if a is not None:
+                aux = aux + a
+            if kv_out is not None:
+                kv_out(l, *kv)
+    return x, aux
+
+
+@torch.no_grad()
+def forward(cfg, params: LM, batch, run: RunConfig = DEFAULT_RUN):
+    """Full-sequence forward → (logits fp32 (B,S,V), aux_loss)."""
+    p = params.compute_params(run.compute_dtype, refresh=True)
+    x = _embed_inputs(p, batch, run)
+    b, s, _ = x.shape
+    x, aux = _layers(cfg, run, p, x, _positions(b, s, x.device))
+    if not cfg.has_ssm:
+        aux = aux / cfg.n_layers
+    return _logits(p, cfg, x), aux
+
+
+def loss_fn(cfg, params: LM, batch, run: RunConfig = DEFAULT_RUN):
+    logits, aux = forward(cfg, params, batch, run)
+    labels = as_tensor(batch["labels"], logits.device).long()
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = as_tensor(mask, logits.device)
+    ce = cross_entropy_loss(logits, labels, mask)
+    return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, run: RunConfig = DEFAULT_RUN,
+               device=None):
+    """Empty serving cache sized for ``max_len`` context."""
+    dev = resolve_device(device)
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    def zeros(n, shape, dtype):
+        return torch.zeros((n, *shape), dtype=dtype, device=dev)
+
+    if cfg.has_ssm:
+        st = ssm_mod.init_ssm_state(cfg, batch, run.cache_dtype, dev)
+        cache["ssm"] = {k: zeros(cfg.n_layers, a.shape, a.dtype)
+                        for k, a in st.items()}
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        cache["shared_k"] = zeros(groups, kv_shape, run.cache_dtype)
+        cache["shared_v"] = zeros(groups, kv_shape, run.cache_dtype)
+    elif not cfg.has_ssm:
+        cache["k"] = zeros(cfg.n_layers, kv_shape, run.cache_dtype)
+        cache["v"] = zeros(cfg.n_layers, kv_shape, run.cache_dtype)
+    return cache
+
+
+@torch.no_grad()
+def prefill(cfg, params: LM, batch, max_len: int,
+            run: RunConfig = DEFAULT_RUN):
+    """Process a full prompt → (last-token logits (B,V), cache).
+
+    Makes the compute-dtype copy of the weights that the decode steps
+    after it reuse."""
+    p = params.compute_params(run.compute_dtype, refresh=True)
+    x = _embed_inputs(p, batch, run)
+    b, s, _ = x.shape
+    cache = init_cache(cfg, b, max_len, run, x.device)
+    ssm_state = kv_out = None
+    if cfg.has_ssm:
+        def ssm_state(l, st=None):
+            if st is None:
+                return {k: a[l] for k, a in cache["ssm"].items()}
+            for k, a in cache["ssm"].items():
+                a[l].copy_(st[k])
+    if cfg.family != "ssm":
+        ks, vs = ((cache["shared_k"], cache["shared_v"])
+                  if cfg.family == "hybrid" else (cache["k"], cache["v"]))
+
+        def kv_out(i, k, v):
+            ks[i, :, :s] = k
+            vs[i, :, :s] = v
+    x, _ = _layers(cfg, run, p, x, _positions(b, s, x.device), ssm_state,
+                   kv_out)
+    cache["pos"].fill_(s)
+    return _logits(p, cfg, x[:, -1:])[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(cfg, params: LM, tokens, cache, run: RunConfig = DEFAULT_RUN):
+    """One decoding step. tokens: (B,) int → (logits (B,V), cache).
+
+    The cache is updated in place (and returned): the new K/V are written
+    at ``pos``, the SSM states replaced, ``pos`` advanced by one."""
+    p = params.compute_params(run.compute_dtype)
+    pos = cache["pos"]
+    tokens = as_tensor(tokens, p.device).long()
+    x = embed(p.embed, tokens[:, None], run.compute_dtype)
+
+    def ssm_at(x, l):
+        bp = p.blocks[l]
+        st = {k: a[l] for k, a in cache["ssm"].items()}
+        h, st2 = ssm_mod.ssm_decode_step(bp.ssm, cfg,
+                                         rms_norm(x, bp.ln, cfg.norm_eps), st)
+        for k, a in st.items():
+            a.copy_(st2[k])
+        return x + h
+
+    def attn_at(x, ap, ln, l, ks, vs):
+        return x + attn_mod.decode_attention(
+            ap, cfg, rms_norm(x, ln, cfg.norm_eps), ks[l], vs[l], pos)
+
+    if cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            x = ssm_at(x, l)
+    elif cfg.family == "hybrid":
+        sp = p.shared
+        for g in range(cfg.n_layers // cfg.attn_every):
+            x = attn_at(x, sp.attn, sp.ln1, g, cache["shared_k"],
+                        cache["shared_v"])
+            x = x + sp.mlp(rms_norm(x, sp.ln2, cfg.norm_eps))
+            for j in range(cfg.attn_every):
+                x = ssm_at(x, g * cfg.attn_every + j)
+    else:
+        for l, bp in enumerate(p.blocks):
+            x = attn_at(x, bp.attn, bp.ln1, l, cache["k"], cache["v"])
+            h, _ = _ffn(cfg, bp, rms_norm(x, bp.ln2, cfg.norm_eps))
+            x = x + h
+    pos.add_(1)
+    return _logits(p, cfg, x)[:, 0], cache
