@@ -128,6 +128,20 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      ms, decode ms a step, tokens/s, peak memory) beside their bounds;
      llama3.2-1b's prompts come from ``TSAFilteredLM``, whose sDTW filter
      runs the kernel (path ``lm_tsa_filter``);
+ 20. the LM training path (``repro_torch.train``, ``optim``,
+     ``checkpoint``, ``ft``, ``launch.train``; no kernel of its own):
+     (a) one fp32 train step of llama3.2-1b and granite-moe-1b-a400m cut
+     to 2 layers at full width on the card and on the CPU with the same
+     weights (loss, grad norm, every gradient leaf); (b) llama3.2-1b at
+     full width and depth built by ``launch.train.build`` with
+     ``--data tsa`` (bf16, ``remat="full"``, 8 × 512 tokens), one warm-up
+     and 8 timed steps (step ms, tokens/s, peak memory, the first and
+     last loss beside the step's bound), the AdamW update timed beside
+     its bound, the filter's K1 launches the path ``lm_train_tsa_filter``;
+     (c) a ``TrainingRunner`` with an injected failure against an
+     uninterrupted run on the two 2-layer cuts, bitwise (checkpoint save
+     and restore seconds and bytes); (d) one timed step of each other
+     config that phase 19 ran at full depth;
      then the JSON lines.
 
 Every path runs on ``kernel="auto"``'s choice under the engine's default
@@ -2268,6 +2282,374 @@ def phase_lm(torch, np, ops, dev, seed: int, serve=None):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the LM training path.
+# ---------------------------------------------------------------------------
+
+#: Card against CPU (one fp32 step) and the bitwise resume: 2-layer cuts
+#: at full width.
+TRAIN_CUTS = ("llama3.2-1b", "granite-moe-1b-a400m")
+#: One timed step each, at full width and (memory allowing) full depth.
+TRAIN_OTHERS = ("granite-moe-1b-a400m", "mamba2-780m", "zamba2-2.7b",
+                "internvl2-2b", "musicgen-large")
+#: The trained load of (b) and (d), and the steps of (b).
+TRAIN_LOAD = dict(batch=8, seq_len=512, timed=8)
+#: Bytes a parameter the state holds in training: fp32 master, gradient,
+#: m and v, and the bf16 compute copy. A config whose state would pass
+#: ``TRAIN_MEM_SHARE`` of the card is cut in depth.
+TRAIN_BYTES_A_PARAM, TRAIN_MEM_SHARE = 18, 0.85
+#: fp32 tolerances of a train step on the card against the CPU: loss and
+#: grad norm (relative), and each gradient leaf's largest difference as a
+#: share of the leaf's largest magnitude (TF32 off: summation order only).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_FRAC = 1e-4, 1e-3
+
+
+def train_batch(torch, cfg, b: int, s: int, gen, dev):
+    """Seeded inputs (tokens or embeddings) and labels."""
+    batch = lm_prompts(torch, cfg, b, s, gen, dev)
+    batch["labels"] = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                    device=dev, dtype=torch.int32)
+    return batch
+
+
+def train_card_vs_cpu(torch, cfg, dev, seed: int):
+    """One fp32 train step (remat full) from the same weights and batch on
+    the card and on the CPU: (loss rel. diff, grad norm rel. diff, the
+    largest gradient leaf difference as a share of the leaf, that leaf)."""
+    from repro_torch import models as tm
+    from repro_torch.models.layers import Init
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    run = tm.RunConfig(compute_dtype=torch.float32)
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                     total_steps=10))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    card = tm.init_lm(cfg, gen, dev)
+    cpu = tm.LM(cfg, Init(torch.device("cpu")))
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = train_batch(torch, cfg, 2, 32, gen, dev)
+    out = {}
+    for lm in (card, cpu):
+        b = {k: v.to(lm.device) for k, v in batch.items()}
+        state = init_train_state(cfg, lm, tcfg)
+        names, leaves = zip(*lm.named_parameters())
+        loss, _ = tm.loss_fn(cfg, lm, b, run)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        grads = {n: g.cpu() for n, g in zip(names, grads)}
+        _, met = make_train_step(cfg, run, tcfg)(state, b)
+        out[lm.device.type] = (float(met["loss"]), float(met["grad_norm"]),
+                               grads)
+    (lc, nc, gc), (lp, np_, gp) = out[dev.type], out["cpu"]
+    worst, at = 0.0, None
+    for n, g in gp.items():
+        frac = (float((gc[n] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30))
+        if frac > worst:
+            worst, at = frac, n
+    return abs(lc - lp) / abs(lp), abs(nc - np_) / abs(np_), worst, at
+
+
+def train_state_tensors(state):
+    """{path: tensor} of a train state, parameters by name."""
+    out = {}
+    for k, v in state.items():
+        if hasattr(v, "named_parameters"):
+            v = dict(v.named_parameters())
+        if isinstance(v, dict):
+            out.update({f"{k}/{p}": t
+                        for p, t in train_state_tensors(v).items()})
+        else:
+            out[k] = v
+    return out
+
+
+def train_resume(torch, cfg, dev, seed: int, root: str):
+    """A ``TrainingRunner`` that fails at step 2 (after the checkpoint of
+    step 1) against one that does not, 3 steps of 2 × 64 tokens in bf16
+    with remat: (bitwise equal, restarts, save seconds, restore seconds,
+    checkpoint bytes)."""
+    import os
+    from repro_torch import models as tm
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.ft import FailureInjector, RunnerConfig, TrainingRunner
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+
+    class Timed(TrainingRunner):
+        def _save(self, step):
+            t0 = time.perf_counter()
+            super()._save(step)
+            self.io.append(("save", time.perf_counter() - t0))
+
+        def _restore(self):
+            t0 = time.perf_counter()
+            step = super()._restore()
+            self.io.append(("restore", time.perf_counter() - t0))
+            return step
+
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=3))
+    dcfg = DataConfig(seed=seed, seq_len=64, global_batch=2, vocab=cfg.vocab,
+                      embeddings_dim=cfg.d_model if cfg.frontend == "stub"
+                      else 0)
+    outs, io, nbytes = [], [], 0
+    for i, fail in enumerate(((), (2,))):
+        lm = tm.init_lm(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+        d = os.path.join(root, f"{cfg.name}_{i}")
+        r = Timed(make_train_step(cfg, tm.RunConfig(), tcfg),
+                  SyntheticLM(dcfg), init_train_state(cfg, lm, tcfg), d,
+                  RunnerConfig(total_steps=3, ckpt_every=2),
+                  injector=FailureInjector(fail))
+        r.io = io
+        out = r.run()
+        outs.append(({k: v.cpu() for k, v in
+                      train_state_tensors(out["state"]).items()},
+                     out["restarts"]))
+        last = os.path.join(d, "step_00000002")
+        nbytes = sum(os.path.getsize(os.path.join(last, f))
+                     for f in os.listdir(last))
+        del out, r, lm
+    (a, _), (b, restarts) = outs
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    return (same, restarts, [t for kind, t in io if kind == "save"],
+            [t for kind, t in io if kind == "restore"], nbytes)
+
+
+def train_profile(torch, fn, sync, top: int = 10):
+    """One run of ``fn`` under ``torch.profiler`` (CPU and CUDA activity):
+    its wall ms, the device time of its kernels, the device's busy share
+    of the wall, the kernel count and the ``top`` ops by device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+    def dev_us(e):          # an op's own kernels, not its children's
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    ranked = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CPU),
+                    key=dev_us, reverse=True)[:top]
+    return {"wall_ms": wall, "device_ms": device,
+            "busy": device / wall if wall else 0.0,
+            "launches": len(kernels),
+            "top": [(e.key, dev_us(e) / 1e3) for e in ranked]}
+
+
+def train_bound_ms(n_params: int, tokens: int):
+    """A train step's least time: 8·N·T operations (forward, the remat's
+    second forward, backward) at the bf16 peak, in ms."""
+    return 8 * n_params * tokens / BF16_FLOPS * 1e3
+
+
+def phase_train(torch, np, ops, dev, seed: int, load=None, root=None):
+    """Phase 20: the LM training path on the card (module docstring, item
+    20). Returns ({path: launches}, {part: numbers})."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import models as tm
+    from repro_torch.configs import get_arch
+    from repro_torch.device import as_tensor
+    from repro_torch.launch.train import build
+    from repro_torch.optim import OptConfig, adamw_update
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+
+    cuda = dev.type == "cuda"
+    load = load or TRAIN_LOAD
+    b, s, timed = load["batch"], load["seq_len"], load["timed"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    t_phase = time.time()
+    out, launches = {"card_vs_cpu": {}, "resume": {}, "others": {}}, {}
+    # (a) Card against CPU.
+    for name in TRAIN_CUTS:
+        cfg = lm_cut(get_arch(name), 2)
+        t0 = time.time()
+        dl, dn, frac, at = train_card_vs_cpu(torch, cfg, dev, seed)
+        out["card_vs_cpu"][name] = {"loss_rel": dl, "grad_norm_rel": dn,
+                                    "grad_leaf_frac": frac, "leaf": at}
+        log(f"phase 20: {name} cut to {cfg.n_layers} layers, one fp32 train "
+            f"step card vs CPU: loss {dl:.2e} relative, grad norm {dn:.2e}, "
+            f"worst gradient leaf {frac:.2e} of its largest ({at}), in "
+            f"{time.time() - t0:.1f} s")
+        if not (dl <= TRAIN_LOSS_RTOL and dn <= TRAIN_LOSS_RTOL
+                and frac <= TRAIN_GRAD_FRAC):
+            raise AssertionError(f"phase 20: {name} card != CPU: {dl}, {dn}, "
+                                 f"{frac} ({at})")
+        free()
+
+    # (b) llama3.2-1b at full width and depth, fed by the sDTW filter.
+    held = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.time()
+    cfg, data, state, step = build(
+        "llama3.2-1b", "full", "1x1", seq_len=s, global_batch=b, lr=3e-4,
+        steps=timed + 1, microbatches=1, compression=None, data_kind="tsa",
+        seed=seed, device=dev)
+    sync()
+    build_s = time.time() - t0
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    ops.reset_launches()
+    losses, step_ms, filter_ms = [], [], []
+    for i in range(timed + 1):
+        t0 = time.perf_counter()
+        batch = {k: as_tensor(v, dev) for k, v in data.batch_at(i).items()}
+        sync()
+        t1 = time.perf_counter()
+        state, met = step(state, batch)
+        sync()
+        t2 = time.perf_counter()
+        losses.append(float(met["loss"]))
+        if i == 0:                     # the warm-up step
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+        else:
+            filter_ms.append((t1 - t0) * 1e3)
+            step_ms.append((t2 - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+    launches["lm_train_tsa_filter"] = dict(ops.LAUNCHES)
+    k1 = {k: n for k, n in ops.LAUNCHES.items() if n}
+    if cuda and not any(k.endswith("_plain") for k in k1):
+        raise AssertionError(f"phase 20: the filter launched no K1 kernel: "
+                             f"{k1}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 20: non-finite loss {losses}")
+    med = statistics.median(step_ms)
+    tokens = b * s
+    bound = train_bound_ms(n_params, tokens)
+    prof = train_profile(torch, lambda: step(state, batch), sync)
+    # The AdamW update alone, on the trained state (gradients of its
+    # shape), beside its bytes: p, g, m, v read, p, m, v written.
+    grads = {n: torch.randn_like(p) for n, p in
+             state["params"].named_parameters()}
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+
+    def adamw():
+        adamw_update(opt, state["params"], grads, state["opt"])
+    adamw_ms = cuda_ms(adamw) if cuda else float("nan")
+    adamw_bound = 28 * n_params / HBM_BYTES_PER_S * 1e3
+    out["full"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "tokens_a_step": tokens, "build_s": build_s,
+        "step_ms": med, "step_ms_all": step_ms, "tokens_per_s":
+        tokens / (med / 1e3), "bound_ms": bound, "bound_share": bound / med,
+        "adamw_ms": adamw_ms, "adamw_bound_ms": adamw_bound,
+        "peak_gb": peak / 1e9, "first_loss": losses[0],
+        "last_loss": losses[-1], "filter_ms": statistics.median(filter_ms),
+        "filter": dict(data.filter_stats), "filter_launches": k1,
+        "profile": prof}
+    log(f"phase 20: llama3.2-1b full width and depth ({cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B parameters, built in {build_s:.2f} s), "
+        f"bf16 remat=full, {b}x{s} tokens fed by TSAFilteredLM: step "
+        f"{med:.3f} ms median of {timed} (bound {bound:.3f} ms: 8·N·T at "
+        f"989 TFLOP/s; {bound / med:.3f} of it), {tokens / (med / 1e3):.1f} "
+        f"tokens/s, AdamW {adamw_ms:.3f} ms (bound {adamw_bound:.3f} ms: "
+        f"28 B a parameter at 3.35 TB/s), peak {peak / 1e9:.3f} GB, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; filter "
+        f"{out['full']['filter_ms']:.3f} ms a batch, {data.filter_stats}, "
+        f"launches {k1}")
+    log(f"phase 20: one more step under torch.profiler: {prof['wall_ms']:.3f}"
+        f" ms wall, {prof['device_ms']:.3f} ms of device time (busy "
+        f"{prof['busy']:.3f}), {prof['launches']} kernel launches; device ms "
+        f"by op: " + ", ".join(f"{k} {v:.3f}" for k, v in prof['top']))
+    del state, step, data, grads, batch, met
+    free()
+
+    # (c) Bitwise resume on the card.
+    root = root or tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for name in TRAIN_CUTS:
+            cfg = lm_cut(get_arch(name), 2)
+            t0 = time.time()
+            same, restarts, saves, restores, nbytes = train_resume(
+                torch, cfg, dev, seed, root)
+            out["resume"][name] = {"bitwise": same, "restarts": restarts,
+                                   "save_s": saves, "restore_s": restores,
+                                   "bytes": nbytes}
+            log(f"phase 20: {name} cut to {cfg.n_layers} layers, a runner "
+                f"failing at step 2 against one that does not: bitwise "
+                f"{same}, {restarts} restart; checkpoint {nbytes / 1e9:.3f} "
+                f"GB, saves {', '.join(f'{t:.2f}' for t in saves)} s, "
+                f"restore {', '.join(f'{t:.2f}' for t in restores)} s; in "
+                f"{time.time() - t0:.1f} s")
+            if not same or restarts != 1:
+                raise AssertionError(f"phase 20: {name} resumed run != "
+                                     f"uninterrupted ({restarts} restarts)")
+            free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) One timed step of each other config.
+    total = torch.cuda.get_device_properties(dev).total_memory if cuda \
+        else None
+    for i, name in enumerate(TRAIN_OTHERS):
+        full = get_arch(name)
+        cfg = full
+        while total and cfg.n_layers > 2 and (
+                TRAIN_BYTES_A_PARAM * cfg.param_count()
+                > TRAIN_MEM_SHARE * total):
+            cfg = lm_cut(cfg, cfg.n_layers // 2)
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        held = torch.cuda.memory_allocated() if cuda else 0
+        # as ``build`` makes a "full" preset: bf16, remat="full"
+        tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=2,
+                                         total_steps=2))
+        state = init_train_state(cfg, tm.init_lm(cfg, gen, dev), tcfg)
+        step = make_train_step(cfg, tm.RunConfig(), tcfg)
+        batch = train_batch(torch, cfg, b, s, gen, dev)
+        state, met = step(state, batch)                  # warm-up
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+        loss = float(met["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"phase 20: {name}: non-finite loss")
+        n_mm = cfg.active_param_count() - (
+            0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
+        bound = train_bound_ms(n_mm, b * s)
+        out["others"][name] = {
+            "family": cfg.family, "layers": cfg.n_layers,
+            "full_layers": full.n_layers,
+            "params": sum(p.numel() for p in state["params"].parameters()),
+            "step_ms": ms, "tokens_per_s": b * s / (ms / 1e3),
+            "bound_ms": bound, "bound_share": bound / ms,
+            "peak_gb": peak / 1e9, "loss": loss}
+        log(f"phase 20: {name} ({cfg.family}, {cfg.n_layers}/{full.n_layers} "
+            f"layers{'' if cfg is full else ', cut for memory'}): one step "
+            f"{ms:.3f} ms (bound {bound:.3f} ms: 8·N·T, N the "
+            f"{n_mm / 1e9:.3f} B active matmul parameters), "
+            f"{b * s / (ms / 1e3):.1f} tokens/s, peak {peak / 1e9:.3f} GB, "
+            f"loss {loss:.4f}")
+        del state, step, batch, met
+        free()
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 20: total {out['seconds']:.1f} s")
+    return launches, out
+
+
 def ptxas_summary(log_text: str):
     """``{kernel name: (registers, spill stores, spill loads)}`` from
     nvcc's ``-Xptxas -v`` output."""
@@ -2708,6 +3090,10 @@ def main() -> int:
     # sDTW filter.
     lm_paths, lm_out = phase_lm(torch, np, ops, dev, args.seed)
     path_by.update(lm_paths)
+
+    # Phase 20: the LM training path, llama3.2-1b fed by the sDTW filter.
+    train_paths, train_out = phase_train(torch, np, ops, dev, args.seed)
+    path_by.update(train_paths)
     path_by = {"matsa_human": human_launches, "topk_fold_human":
                topk_launches, "sdtw_spans_ecg": ecg_launches,
                "long_queries": long_launches, **path_by}
@@ -2759,6 +3145,7 @@ def main() -> int:
         f"({spans['wavefront'] / spans['chain']:.2f}x), K2 bound "
         f"{long_out['spans_bound_ms']:.3f} ms")
     log("lm serving (phase 19): " + json.dumps(lm_out))
+    log("lm training (phase 20): " + json.dumps(train_out))
     rows = []
     src = {"rows": "src/repro_torch/kernels/sdtw/csrc/sdtw_rows.cu",
            "chain": "src/repro_torch/kernels/sdtw/csrc/sdtw_chain.cu",

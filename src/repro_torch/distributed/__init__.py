@@ -1,9 +1,10 @@
 """The sharded sDTW engine on ``torch.distributed`` (counterpart of
 ``repro.distributed``): meshes of ranks (``sharding``), the systolic
-hand-off and harvest (``collectives``) and the pipeline with its entry
-points (``sdtw_sharded``). The LM stack's ``Axes``, ``tree_shardings``,
-GPipe over layers (``pipeline``) and the compressed collectives wait for
-ROADMAP queue 1, item 14."""
+hand-off and harvest (``collectives``, which also holds the train step's
+local int8 gradient compression) and the pipeline with its entry points
+(``sdtw_sharded``). The LM stack's ``Axes``, ``tree_shardings``, GPipe
+over layers (``pipeline``) and ``compressed_psum`` wait for ROADMAP item
+14(b)."""
 from .sharding import Mesh, get_mesh, init_multi_host, pipeline_axes
 
 __all__ = ["Mesh", "get_mesh", "init_multi_host", "pipeline_axes",

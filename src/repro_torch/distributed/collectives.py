@@ -3,10 +3,11 @@
 Counterparts of ``repro.distributed.collectives.neighbor_perm`` and
 ``psum_harvest``: the left-to-right systolic hand-off of the chunk carry
 (``lax.ppermute`` there, one ``dist.batch_isend_irecv`` a tick here) and
-the harvest of the last stage's results onto every rank. The gradient
-compression of that module (``quantize_int8``, ``compress_with_feedback``,
-``compressed_psum``, ``init_feedback``) belongs to LM training and waits
-for ROADMAP queue 1, item 14.
+the harvest of the last stage's results onto every rank. The local part
+of that module's gradient compression (``quantize_int8``,
+``dequantize_int8``, ``compress_with_feedback``, ``init_feedback``) is
+here for the train step's ``int8_ef`` mode; ``compressed_psum``, a
+collective of the distributed LM, waits for ROADMAP item 14(b).
 
 A message is the carry's leaves packed into one byte buffer, so a tick
 moves one tensor each way. The wire is ``wire_device``: the tensors' own
@@ -21,6 +22,8 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..models.convert import stacked_leaves
+from ..optim.adamw import named
 from .sharding import Mesh, this_rank
 
 
@@ -125,3 +128,57 @@ def psum_harvest(outs: Optional[tuple], template: Sequence[torch.Tensor],
     by_rank = dict(zip(sorted(column), parts))
     rows = [unpack(by_rank[r], template, device, lead) for r in column]
     return tuple(torch.cat([rw[i] for rw in rows]) for i in range(len(template)))
+
+
+# ---------------------------------------------------------------------------
+# int8 gradient compression with error feedback (local part).
+# ---------------------------------------------------------------------------
+
+def quantize_int8(g):
+    """Symmetric per-tensor int8. Returns (q int8, scale f32).
+
+    ``torch.round`` rounds half to even as ``jnp.round`` does, so q and
+    the scale equal the reference's bitwise."""
+    g = g.float()
+    scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+    return _to_int8(g, scale), scale
+
+
+def _to_int8(g, scale):
+    return torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+
+
+def dequantize_int8(q, scale):
+    return q.float() * scale
+
+
+def compress_with_feedback(grads: dict, feedback: dict):
+    """Quantise named gradients with error feedback.
+
+    Returns (dequantised grads — what the wire would deliver on a
+    1-device reduction —, new feedback buffers), both dicts under the
+    gradients' names. The scale is per tensor of the reference's tree:
+    the layers of a stacked leaf (``blocks.<l>.attn.wq`` for every l)
+    share one, the largest magnitude over all of them, as the reference
+    quantises its stacked ``blocks/attn/wq``."""
+    names = list(grads)
+    deq, new_fb = {}, {}
+    for idx in stacked_leaves([n.split(".") for n in names]).values():
+        members = [names[i] for i in (idx if isinstance(idx, list)
+                                      else [idx])]
+        corrected = {n: grads[n].float() + feedback[n] for n in members}
+        top = torch.stack([torch.max(torch.abs(c))
+                           for c in corrected.values()]).max()
+        scale = torch.clamp(top, min=1e-12) / 127.0
+        for n, c in corrected.items():
+            deq[n] = dequantize_int8(_to_int8(c, scale), scale)
+            new_fb[n] = c - deq[n]
+    return deq, new_fb
+
+
+def init_feedback(params) -> dict:
+    """Zero fp32 feedback buffers named as ``params`` (an ``nn.Module``'s
+    parameters or a dict of tensors)."""
+    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for n, p in named(params).items()}
+

@@ -19,10 +19,17 @@ from torch import nn
 class Init:
     """Parameter factory for a model's constructor: seeded normal draws
     from ``generator`` on ``device``, or uninitialised storage in ``dtype``
-    when ``generator`` is None (a model about to be loaded or cast into)."""
+    when ``generator`` is None (a model about to be loaded or cast into).
+
+    Parameters are made frozen (``requires_grad`` False), so a model
+    serves and evaluates without building a graph; a train state turns
+    gradients on (``train.init_train_state``)."""
 
     def __init__(self, device, generator=None, dtype=torch.float32):
         self.device, self.generator, self.dtype = device, generator, dtype
+
+    def _param(self, data) -> nn.Parameter:
+        return nn.Parameter(data, requires_grad=False)
 
     def _empty(self, shape):
         return torch.empty(shape, device=self.device, dtype=self.dtype)
@@ -30,15 +37,15 @@ class Init:
     def normal(self, shape, fan_in=None, scale=1.0) -> nn.Parameter:
         """``scale`` times ``normal_init``: N(0, 1/fan_in) draws."""
         if self.generator is None:
-            return nn.Parameter(self._empty(shape))
-        return nn.Parameter(scale * normal_init(
+            return self._param(self._empty(shape))
+        return self._param(scale * normal_init(
             shape, fan_in, self.generator, self.device, self.dtype))
 
     def const(self, values) -> nn.Parameter:
         """A parameter holding ``values`` (a tensor made on the CPU)."""
         if self.generator is None:
-            return nn.Parameter(self._empty(tuple(values.shape)))
-        return nn.Parameter(values.to(device=self.device, dtype=self.dtype))
+            return self._param(self._empty(tuple(values.shape)))
+        return self._param(values.to(device=self.device, dtype=self.dtype))
 
     def ones(self, n: int) -> nn.Parameter:
         return self.const(torch.ones(n))
@@ -69,14 +76,13 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 class SwiGLU(nn.Module):
+    """``swiglu``'s weights (the model applies them to its cast copy)."""
+
     def __init__(self, init: Init, d_model: int, d_ff: int):
         super().__init__()
         self.w_gate = init.normal((d_model, d_ff), d_model)
         self.w_up = init.normal((d_model, d_ff), d_model)
         self.w_down = init.normal((d_ff, d_model), d_ff)
-
-    def forward(self, x):
-        return swiglu(x, self.w_gate, self.w_up, self.w_down)
 
 
 # ---------------------------------------------------------------------------

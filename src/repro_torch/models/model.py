@@ -9,14 +9,22 @@ stub frontend: inputs may be precomputed embeddings instead of token ids).
 An ``LM`` holds fp32 master parameters in a ``ModuleList`` of per-family
 blocks, named as the reference's parameter tree (``blocks.<l>.attn.wq``
 is layer l of the reference's stacked ``blocks/attn/wq``). Compute runs on
-a copy cast to the compute dtype, as the reference's ``_cast_params``;
-``prefill`` makes that copy once and the ``decode_step``s after it reuse
-it (nothing changes the weights while serving), where the reference casts
-on every call. The layer stack is a Python loop; ``RunConfig.scan_layers``
-and ``pad_heads`` are accepted and change nothing here (the reference
-gives the same answer either way, and pads heads only with a mesh).
+the parameters cast to the compute dtype (``cast_params``, the reference's
+``_cast_params``), a tree of tensors with the ``LM``'s attribute paths.
+With grad enabled ``forward`` and ``loss_fn`` cast inside the autograd
+graph, so gradients reach the fp32 masters; ``prefill`` (no grad) makes a
+detached copy once and the ``decode_step``s after it reuse it (nothing
+changes the weights while serving), where the reference casts on every
+call. The layer stack is a Python loop; ``RunConfig.scan_layers`` and
+``pad_heads`` are accepted and change nothing here (the reference gives
+the same answer either way, and pads heads only with a mesh).
 
-Forward only: autograd and rematerialisation come with training.
+Rematerialisation (``RunConfig.remat``) wraps the reference's bodies: a
+dense or MoE block, a hybrid group (the shared block and its SSM layers),
+an SSM block. ``"full"`` keeps only each body's inputs
+(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` also keeps the
+outputs of its unbatched matmuls (``aten.mm``), the counterpart of
+``dots_with_no_batch_dims_saveable``.
 
 The serving cache has the reference's layout and dtypes: ``pos`` (B,)
 int32; ``k``/``v`` (n_layers, B, max_len, Hkv, Dh) for attention stacks;
@@ -27,29 +35,53 @@ max_len, Hkv, Dh) for the hybrid. ``decode_step`` updates it in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import types
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt_mod
 
 from ..device import as_tensor, resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (Embedding, Init, SwiGLU, cross_entropy_loss, embed,
-                     rms_norm, unembed)
+                     rms_norm, swiglu, unembed)
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Execution knobs (orthogonal to the architecture)."""
     compute_dtype: Any = torch.bfloat16
-    remat: str = "full"          # none | full | dots (training only)
+    remat: str = "full"          # none | full | dots
     attn_mode: str = "dense"     # dense | chunked | triangular
     attn_chunk: int = 1024
     cache_dtype: Any = torch.bfloat16
     scan_layers: bool = True     # accepted; the stack is always a loop
     pad_heads: bool = False      # accepted; pads only with a mesh
+
+    def checkpoint(self, fn):
+        """``fn`` rematerialised under this config's policy when grad is
+        enabled (without grad there is nothing to save)."""
+        if self.remat == "none":
+            return fn
+        if self.remat == "full":
+            kw = {}
+        elif self.remat == "dots":
+            kw = {"context_fn": functools.partial(
+                ckpt_mod.create_selective_checkpoint_contexts,
+                [torch.ops.aten.mm.default])}
+        else:
+            raise ValueError(self.remat)
+
+        @functools.wraps(fn)
+        def wrapped(*args):
+            if not torch.is_grad_enabled():
+                return fn(*args)
+            return ckpt_mod.checkpoint(fn, *args, use_reentrant=False, **kw)
+        return wrapped
 
 
 DEFAULT_RUN = RunConfig()
@@ -106,26 +138,39 @@ class LM(nn.Module):
             self.shared = SharedBlock(init, cfg)
         if not cfg.tie_embeddings:
             self.unembed = Embedding(init, cfg.vocab, cfg.d_model)
-        self._compute = None     # (dtype, LM): the cast copy prefill made
+        self._compute = None     # (dtype, tree): the cast copy prefill made
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
 
-    def compute_params(self, dtype, refresh: bool = False) -> "LM":
-        """This model's parameters in ``dtype`` (the reference's
-        ``_cast_params``): the model itself for its own dtype, else a cast
-        copy, kept until ``refresh`` or another dtype asks for a new one."""
+    def compute_params(self, dtype, refresh: bool = False):
+        """This model's parameters in ``dtype`` for serving: the model
+        itself for its own dtype, else a detached ``cast_params`` copy,
+        kept until ``refresh`` or another dtype asks for a new one."""
         if dtype == self.final_norm.dtype:
             return self
         if refresh or self._compute is None or self._compute[0] != dtype:
             self._compute = None          # free the old copy first
             with torch.no_grad():
-                copy = LM(self.cfg, Init(self.device, None, dtype))
-                for dst, src in zip(copy.parameters(), self.parameters()):
-                    dst.requires_grad_(False).copy_(src)
-            self._compute = (dtype, copy)
+                self._compute = (dtype, cast_params(self, dtype))
         return self._compute[1]
+
+
+def cast_params(module: nn.Module, dtype):
+    """``module``'s parameters cast to ``dtype`` (the reference's
+    ``_cast_params``) as a tree of namespaces with the module's attribute
+    paths (``p.blocks[l].attn.wq``). The cast is differentiable when grad
+    is enabled (gradients reach the fp32 masters), and a parameter already
+    in ``dtype`` is the parameter itself."""
+    out = types.SimpleNamespace(**{
+        name: p.to(dtype) if p.is_floating_point() else p
+        for name, p in module.named_parameters(recurse=False)})
+    for name, child in module.named_children():
+        setattr(out, name, [cast_params(c, dtype) for c in child]
+                if isinstance(child, nn.ModuleList)
+                else cast_params(child, dtype))
+    return out
 
 
 def init_lm(cfg, generator: torch.Generator = None, device=None) -> LM:
@@ -146,7 +191,11 @@ def _ffn(cfg, bp, x):
     """The block's FF half on its normed input → (out, aux)."""
     if cfg.has_moe:
         return moe_mod.moe_mlp(bp.moe, cfg, x)
-    return bp.mlp(x), None
+    return _swiglu(bp.mlp, x), None
+
+
+def _swiglu(mp, x):
+    return swiglu(x, mp.w_gate, mp.w_up, mp.w_down)
 
 
 def _dense_block(cfg, run, bp, x, positions):
@@ -161,11 +210,11 @@ def _shared_block(cfg, run, sp, x, positions):
     h, kv = attn_mod.attention(sp.attn, cfg, rms_norm(x, sp.ln1, cfg.norm_eps),
                                positions, run.attn_mode, run.attn_chunk)
     x = x + h
-    return x + sp.mlp(rms_norm(x, sp.ln2, cfg.norm_eps)), kv
+    return x + _swiglu(sp.mlp, rms_norm(x, sp.ln2, cfg.norm_eps)), kv
 
 
 def _embed_inputs(params, batch, run):
-    dev = params.device
+    dev = params.final_norm.device
     if "embeddings" in batch:
         return as_tensor(batch["embeddings"], dev, run.compute_dtype)
     tokens = as_tensor(batch["tokens"], dev).long()
@@ -187,7 +236,8 @@ def _layers(cfg, run, params, x, positions, ssm_state=None, kv_out=None):
 
     ``ssm_state(l)`` gives layer l's serving state to continue (and
     takes the new one back); ``kv_out(i, k, v)`` receives attention
-    layer (or hybrid group) i's K/V. Both are for ``prefill``."""
+    layer (or hybrid group) i's K/V. Both are for ``prefill``. The bodies
+    the reference rematerialises go through ``run.checkpoint``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def ssm_layer(l, x):
@@ -199,30 +249,47 @@ def _layers(cfg, run, params, x, positions, ssm_state=None, kv_out=None):
         ssm_state(l, st)
         return x + h
 
+    def group(g, x):
+        x, kv = _shared_block(cfg, run, params.shared, x, positions)
+        if kv_out is not None:
+            kv_out(g, *kv)
+        for j in range(cfg.attn_every):
+            x = ssm_layer(g * cfg.attn_every + j, x)
+        return x
+
+    def block(l, x):
+        x, a, kv = _dense_block(cfg, run, params.blocks[l], x, positions)
+        if kv_out is not None:
+            kv_out(l, *kv)
+        return x, a
+
     if cfg.family == "ssm":
+        body = run.checkpoint(ssm_layer)
         for l in range(cfg.n_layers):
-            x = ssm_layer(l, x)
+            x = body(l, x)
     elif cfg.family == "hybrid":
+        body = run.checkpoint(group)
         for g in range(cfg.n_layers // cfg.attn_every):
-            x, kv = _shared_block(cfg, run, params.shared, x, positions)
-            if kv_out is not None:
-                kv_out(g, *kv)
-            for j in range(cfg.attn_every):
-                x = ssm_layer(g * cfg.attn_every + j, x)
+            x = body(g, x)
     else:
-        for l, bp in enumerate(params.blocks):
-            x, a, kv = _dense_block(cfg, run, bp, x, positions)
+        body = run.checkpoint(block)
+        for l in range(cfg.n_layers):
+            x, a = body(l, x)
             if a is not None:
                 aux = aux + a
-            if kv_out is not None:
-                kv_out(l, *kv)
     return x, aux
 
 
-@torch.no_grad()
 def forward(cfg, params: LM, batch, run: RunConfig = DEFAULT_RUN):
-    """Full-sequence forward → (logits fp32 (B,S,V), aux_loss)."""
-    p = params.compute_params(run.compute_dtype, refresh=True)
+    """Full-sequence forward → (logits fp32 (B,S,V), aux_loss).
+
+    Differentiable with respect to ``params`` when grad is enabled (the
+    cast is part of the graph); without grad it refreshes the serving
+    copy of the weights."""
+    if torch.is_grad_enabled():
+        p = cast_params(params, run.compute_dtype)
+    else:
+        p = params.compute_params(run.compute_dtype, refresh=True)
     x = _embed_inputs(p, batch, run)
     b, s, _ = x.shape
     x, aux = _layers(cfg, run, p, x, _positions(b, s, x.device))
@@ -308,7 +375,7 @@ def decode_step(cfg, params: LM, tokens, cache, run: RunConfig = DEFAULT_RUN):
     at ``pos``, the SSM states replaced, ``pos`` advanced by one."""
     p = params.compute_params(run.compute_dtype)
     pos = cache["pos"]
-    tokens = as_tensor(tokens, p.device).long()
+    tokens = as_tensor(tokens, params.device).long()
     x = embed(p.embed, tokens[:, None], run.compute_dtype)
 
     def ssm_at(x, l):
@@ -332,7 +399,7 @@ def decode_step(cfg, params: LM, tokens, cache, run: RunConfig = DEFAULT_RUN):
         for g in range(cfg.n_layers // cfg.attn_every):
             x = attn_at(x, sp.attn, sp.ln1, g, cache["shared_k"],
                         cache["shared_v"])
-            x = x + sp.mlp(rms_norm(x, sp.ln2, cfg.norm_eps))
+            x = x + _swiglu(sp.mlp, rms_norm(x, sp.ln2, cfg.norm_eps))
             for j in range(cfg.attn_every):
                 x = ssm_at(x, g * cfg.attn_every + j)
     else:
