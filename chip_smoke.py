@@ -141,8 +141,26 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      (c) a ``TrainingRunner`` with an injected failure against an
      uninterrupted run on the two 2-layer cuts, bitwise (checkpoint save
      and restore seconds and bytes); (d) one timed step of each other
-     config that phase 19 ran at full depth;
-     then the JSON lines.
+     config that phase 19 ran at full depth, at half its depth (the
+     script's time limit);
+ 21. the sharded LM (``distributed.Axes``, DTensor state from
+     ``launch.specs.tree_shardings``, the MoE's expert parallelism,
+     ``compressed_psum``, GPipe, the elastic restore; no kernel of its
+     own): (a) one NCCL rank, llama3.2-1b at full width and depth through
+     the sharded code path on a (1, 1) ``("data", "model")`` mesh, its
+     first step against the unsharded step from the same state and batch
+     (bitwise), then 3 timed steps (step ms, host ms to enqueue a step,
+     peak memory beside the bound), the filter's launches the path
+     ``lm_train_sharded_filter``; (b) 4 gloo ranks sharing the card, 2
+     layers at full width in fp32: llama3.2-1b's loss on (2, 2) against
+     the card's unsharded loss; granite-moe-1b-a400m's train state on
+     (2, 2), its a2a and replicated MoE paths on those sharded weights
+     against the local one, a step, a checkpoint restored onto (4, 1)
+     and a step; phi3-medium-14b with ``pad_heads`` on (1, 4);
+     ``compressed_psum`` against the numpy two-phase formula (bitwise);
+     GPipe over 4 stages against the sequential run (the ranks route
+     gloo's functional all-gather of CUDA tensors through the host,
+     ``stage_gloo_all_gather``); then the JSON lines.
 
 Every path runs on ``kernel="auto"``'s choice under the engine's default
 ``tune='model'`` (the shipped tuning table, else the cost model, which
@@ -173,6 +191,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 #: Peak device memory rate of an H100 SXM (NVIDIA's data sheet), bytes/s.
@@ -2289,7 +2308,8 @@ def phase_lm(torch, np, ops, dev, seed: int, serve=None):
 #: Card against CPU (one fp32 step) and the bitwise resume: 2-layer cuts
 #: at full width.
 TRAIN_CUTS = ("llama3.2-1b", "granite-moe-1b-a400m")
-#: One timed step each, at full width and (memory allowing) full depth.
+#: One timed step each, at full width and half depth (the script's time
+#: limit; memory allowing).
 TRAIN_OTHERS = ("granite-moe-1b-a400m", "mamba2-780m", "zamba2-2.7b",
                 "internvl2-2b", "musicgen-large")
 #: The trained load of (b) and (d), and the steps of (b).
@@ -2602,11 +2622,13 @@ def phase_train(torch, np, ops, dev, seed: int, load=None, root=None):
         else None
     for i, name in enumerate(TRAIN_OTHERS):
         full = get_arch(name)
-        cfg = full
+        cfg = lm_cut(full, max(2, full.n_layers // 2))
+        cut = "time"
         while total and cfg.n_layers > 2 and (
                 TRAIN_BYTES_A_PARAM * cfg.param_count()
                 > TRAIN_MEM_SHARE * total):
             cfg = lm_cut(cfg, cfg.n_layers // 2)
+            cut = "time and memory"
         gen = torch.Generator(device=dev).manual_seed(seed + i)
         held = torch.cuda.memory_allocated() if cuda else 0
         # as ``build`` makes a "full" preset: bf16, remat="full"
@@ -2632,13 +2654,13 @@ def phase_train(torch, np, ops, dev, seed: int, load=None, root=None):
         bound = train_bound_ms(n_mm, b * s)
         out["others"][name] = {
             "family": cfg.family, "layers": cfg.n_layers,
-            "full_layers": full.n_layers,
+            "full_layers": full.n_layers, "cut_for": cut,
             "params": sum(p.numel() for p in state["params"].parameters()),
             "step_ms": ms, "tokens_per_s": b * s / (ms / 1e3),
             "bound_ms": bound, "bound_share": bound / ms,
             "peak_gb": peak / 1e9, "loss": loss}
         log(f"phase 20: {name} ({cfg.family}, {cfg.n_layers}/{full.n_layers} "
-            f"layers{'' if cfg is full else ', cut for memory'}): one step "
+            f"layers, cut for {cut}): one step "
             f"{ms:.3f} ms (bound {bound:.3f} ms: 8·N·T, N the "
             f"{n_mm / 1e9:.3f} B active matmul parameters), "
             f"{b * s / (ms / 1e3):.1f} tokens/s, peak {peak / 1e9:.3f} GB, "
@@ -2648,6 +2670,401 @@ def phase_train(torch, np, ops, dev, seed: int, load=None, root=None):
     out["seconds"] = time.time() - t_phase
     log(f"phase 20: total {out['seconds']:.1f} s")
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the sharded LM.
+# ---------------------------------------------------------------------------
+
+#: (b)'s load on the gloo ranks: fp32, 2 × 64 tokens, 2 layers at full
+#: width; and the timed steps of (a).
+SHARD_LM_LOAD = dict(batch=2, seq_len=64, timed=3)
+#: (b)'s tolerances: losses (relative), the MoE paths and GPipe (absolute).
+SHARD_LM_RTOL, SHARD_LM_MOE_ATOL, SHARD_LM_PP_ATOL = 2e-5, 2e-5, 1e-5
+
+
+def stage_gloo_all_gather(torch, dist):
+    """In this process, route the functional all-gather of CUDA tensors
+    (the op DTensor gathers shards with) through the host and the plain
+    ``dist.all_gather_into_tensor`` on its gloo group. torch 2.11's gloo
+    crashes the process on the functional all-gather of CUDA tensors
+    (ranks sharing one card), while its other collectives and the plain
+    c10d all-gather work. Only for phase 21 (b)'s gloo ranks: every group
+    there is a gloo group, and any other raises."""
+    from torch._C._distributed_c10d import _resolve_process_group
+
+    def all_gather(x, group_size, group_name):
+        pg = _resolve_process_group(group_name)
+        if dist.get_backend(pg) != "gloo":
+            raise RuntimeError("stage_gloo_all_gather serves gloo groups "
+                               "only")
+        host = x.new_empty((group_size * x.shape[0], *x.shape[1:]),
+                           device="cpu")
+        dist.all_gather_into_tensor(host, x.contiguous().cpu(), group=pg)
+        return host.to(x.device)
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather, "CUDA")
+    return lib        # the kernel lasts as long as the library object
+
+
+def sharded_lm_rank(rank, world, port, out_dir, src, seed, device,
+                    reduced=False):
+    """Phase 21 (b) on one of the gloo ranks (all on the one card): each
+    check at full width, 2 layers (``reduced``: the reduced configs, for a
+    rehearsal on the CPU); writes the answers and seconds to
+    ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, src)
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import models as tm
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import Axes, init_multi_host
+    from repro_torch.distributed.collectives import compressed_psum
+    from repro_torch.distributed.pipeline import pipeline_apply, split_stages
+    from repro_torch.distributed.sharding import full
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import device_put, tree_shardings
+    from repro_torch.models.model import cast_params
+    from repro_torch.models.moe import moe_mlp
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    init_multi_host(f"localhost:{port}", world, rank, backend="gloo")
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    staged = stage_gloo_all_gather(torch, dist) if cuda else None
+    run = tm.RunConfig(compute_dtype=torch.float32, remat="none")
+    b, s = SHARD_LM_LOAD["batch"], SHARD_LM_LOAD["seq_len"]
+    out = {"s": {}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def timed(name, fn):
+        dist.barrier()
+        sync()
+        t0 = time.time()
+        res = fn()
+        sync()
+        out["s"][name] = time.time() - t0
+        return res
+
+    def arch(name):
+        return (get_arch(name).reduced() if reduced
+                else lm_cut(get_arch(name), 2))
+
+    def loss_of(cfg, params, batch, r=run, axes=None):
+        with torch.no_grad():
+            return float(full(tm.loss_fn(cfg, params, batch, r, axes)[0]))
+
+    mesh22 = make_mesh((2, 2), ("data", "model"))
+    axes22 = Axes.from_mesh(mesh22)
+    # llama3.2-1b's loss on (2, 2).
+    cfg = arch("llama3.2-1b")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lm = tm.init_lm(cfg, gen, dev)
+    batch = train_batch(torch, cfg, b, s, gen, dev)
+    want = loss_of(cfg, lm, batch)
+    st = device_put({"params": lm}, tree_shardings({"params": lm}, axes22,
+                                                   "train"))
+    del lm
+    got = timed("llama_loss_2x2", lambda: loss_of(cfg, st["params"], batch,
+                                                  axes=axes22))
+    out["llama"] = {"loss": got, "unsharded": want}
+    del st
+    free()
+
+    # granite-moe-1b-a400m at capacity_factor 4.0 (no drops): the a2a and
+    # replicated MoE paths against the local one; then its train state on
+    # (2, 2), a step (the a2a's backward), a checkpoint, and its elastic
+    # restore onto (4, 1) with one more step.
+    mcfg = dataclasses.replace(arch("granite-moe-1b-a400m"),
+                               capacity_factor=4.0)
+    mlm = tm.init_lm(mcfg, gen, dev)
+    x = torch.randn((2, 8, mcfg.d_model), generator=gen, device=dev)
+    xs = {"a2a": x, "replicated": x[:, :1]}
+    moe = cast_params(mlm, torch.float32).blocks[0].moe
+    with torch.no_grad():
+        local = {name: moe_mlp(moe, mcfg, xx)[0] for name, xx in xs.items()}
+    del moe
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                     total_steps=10))
+    state = init_train_state(mcfg, mlm, tcfg)
+    state = device_put(state, tree_shardings(state, axes22, "train"))
+    del mlm
+    # the model's sharded parameters, the tokens over the data axis
+    moe = cast_params(state["params"], torch.float32).blocks[0].moe
+    errs = {}
+    for name, xx in xs.items():
+        with torch.no_grad():
+            sharded, _ = timed(f"moe_{name}", lambda: moe_mlp(
+                moe, mcfg, axes22.place(xx, "dp", None, None), axes22))
+            errs[name] = float((full(sharded) - local[name]).abs().max())
+    out["moe"] = errs
+    del moe, local
+    mbatch = train_batch(torch, mcfg, b, s, gen, dev)
+    step = make_train_step(mcfg, run, tcfg, axes22)
+    state, met = timed("moe_step_2x2", lambda: step(state, mbatch))
+    root = os.path.join(out_dir, "ckpt")
+    timed("save_2x2", lambda: ckpt.save(root, 1, state, extra={"step": 1}))
+    axes41 = Axes.from_mesh(make_mesh((4, 1), ("data", "model")))
+    restored, _, _ = timed("restore_4x1", lambda: ckpt.restore(
+        root, state, shardings=tree_shardings(state, axes41, "train")))
+    del state, step
+    step41 = make_train_step(mcfg, run, tcfg, axes41)
+    _, met = timed("moe_step_4x1", lambda: step41(restored, mbatch))
+    out["elastic"] = {"loss": float(met["loss"]), "placements": str(
+        restored["params"].blocks[0].attn.wq.placements)}
+    del restored, step41
+    free()
+
+    # phi3-medium-14b (10 KV heads) with pad_heads on (1, 4).
+    pcfg = arch("phi3-medium-14b")
+    plm = tm.init_lm(pcfg, gen, dev)
+    pbatch = train_batch(torch, pcfg, b, s, gen, dev)
+    want = loss_of(pcfg, plm, pbatch)
+    axes14 = Axes.from_mesh(make_mesh((1, 4), ("data", "model")))
+    pst = device_put({"params": plm},
+                     tree_shardings({"params": plm}, axes14, "train"))
+    del plm
+    free()
+    got = timed("phi3_pad_loss_1x4", lambda: loss_of(
+        pcfg, pst["params"], pbatch,
+        dataclasses.replace(run, pad_heads=True), axes14))
+    out["phi3"] = {"loss": got, "unsharded": want}
+    del pst
+    free()
+
+    # compressed_psum against the numpy two-phase formula.
+    vals = np.random.default_rng(seed).normal(size=(world, 4096)).astype(
+        np.float32)
+    flat = make_mesh((world,), ("d",))
+    got = timed("compressed_psum", lambda: compressed_psum(
+        torch.as_tensor(vals[rank], device=dev), flat.group("d"))).cpu()
+    scale = np.maximum(np.abs(vals).max(), np.float32(1e-12)) / \
+        np.float32(127)
+    q = np.clip(np.rint(vals / scale), -127, 127).astype(np.int32)
+    want = q.sum(0).astype(np.float32) * scale / np.float32(world)
+    out["psum_bitwise"] = bool(np.array_equal(got.numpy(), want))
+
+    # GPipe over 4 stages against the sequential run.
+    pp = make_mesh((world,), ("stage",))
+    rng = np.random.default_rng(seed + 1)
+    w = torch.as_tensor((rng.normal(size=(8, 256, 256)) / 16).astype(
+        np.float32), device=dev)
+    xm = torch.as_tensor(rng.normal(size=(6, 4, 256)).astype(np.float32),
+                         device=dev)
+    got = timed("pipeline", lambda: pipeline_apply(
+        lambda lp, h: torch.tanh(h @ lp["w"]), split_stages({"w": w}, world),
+        xm, pp, "stage"))
+    seq = xm
+    for i in range(8):
+        seq = torch.tanh(seq @ w[i])
+    out["pipeline_err"] = float((got - seq).abs().max())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    del staged
+
+
+def phase_sharded_lm(torch, np, ops, dev, seed, root, load=None,
+                     reduced=False):
+    """Phase 21: the sharded LM (module docstring, item 21). Returns
+    ({path: launches}, {part: numbers}). ``reduced`` runs (b) on the
+    reduced configs (a rehearsal on the CPU)."""
+    import torch.distributed as dist
+
+    from repro_torch import models as tm
+    from repro_torch.checkpoint.checkpoint import _rebuild, _walk
+    from repro_torch.device import as_tensor
+    from repro_torch.distributed import Axes, init_multi_host
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import device_put, tree_shardings
+    from repro_torch.launch.train import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, make_train_step
+
+    load = load or TRAIN_LOAD
+    b, s, timed = load["batch"], load["seq_len"], SHARD_LM_LOAD["timed"]
+    cuda = dev.type == "cuda"
+    t_phase = time.time()
+    out, launches = {}, {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # (a) One NCCL rank: llama3.2-1b at full width and depth through the
+    # sharded code path on a (1, 1) mesh, against the unsharded step.
+    init_multi_host(f"localhost:{free_port()}", 1, 0,
+                    backend="nccl" if cuda else "gloo")
+    try:
+        held = torch.cuda.memory_allocated() if cuda else 0
+        cfg, data, state, step = build(
+            "llama3.2-1b", "full", "1x1", seq_len=s, global_batch=b,
+            lr=3e-4, steps=timed + 1, microbatches=1, compression=None,
+            data_kind="tsa", seed=seed, device=dev)
+        ops.reset_launches()
+        batches = [{k: as_tensor(v, dev) for k, v in data.batch_at(i).items()}
+                   for i in range(timed + 1)]
+        sync()
+        launches["lm_train_sharded_filter"] = dict(ops.LAUNCHES)
+        if cuda and not any(n for k, n in ops.LAUNCHES.items()
+                            if k.endswith("_plain")):
+            raise AssertionError(f"phase 21: the filter launched no K1 "
+                                 f"kernel: {ops.LAUNCHES}")
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        axes = Axes.from_mesh(make_mesh((1, 1), ("data", "model")))
+        # the same state, placed on the mesh (a copy: both take a step)
+        twin = _rebuild(state, iter([t.detach().clone()
+                                     for _, t in _walk(state)]))
+        twin = device_put(twin, tree_shardings(twin, axes, "train"))
+        # as ``build`` makes a "full" preset: bf16, remat="full"
+        tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=2,
+                                         total_steps=timed + 1))
+        sstep = make_train_step(cfg, tm.RunConfig(remat="full",
+                                                  attn_mode="dense"), tcfg,
+                                axes)
+        state, met_u = step(state, batches[0])
+        twin, met_s = sstep(twin, batches[0])
+        sync()
+        loss_u, loss_s = met_u["loss"].cpu(), met_s["loss"].cpu()
+        differ, worst = [], 0.0
+        for (n, p), (_, q) in zip(state["params"].named_parameters(),
+                                  twin["params"].named_parameters()):
+            q = q.to_local()
+            if not torch.equal(p, q):
+                differ.append(n)
+                worst = max(worst, float(((p - q).abs()
+                                          / p.abs().clamp(min=1e-30)).max()))
+        bitwise = bool(torch.equal(loss_u, loss_s)) and not differ
+        log(f"phase 21: llama3.2-1b ({cfg.n_layers} layers) first step at "
+            f"world 1 (NCCL) on a (1, 1) mesh through Axes.from_mesh against "
+            f"the unsharded step from the same state and batch: loss "
+            f"{float(loss_s):.6f} vs {float(loss_u):.6f}, masters "
+            f"{'bitwise' if not differ else f'{len(differ)} leaves differ, worst {worst:.2e} relative'}")
+        if not (bitwise or (float(abs(loss_s - loss_u) / abs(loss_u)) <= 1e-6
+                            and worst <= 1e-6)):
+            raise AssertionError(f"phase 21: sharded world-1 step != "
+                                 f"unsharded: {differ[:5]}, {worst}")
+        del state, step
+        free()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        host_ms, step_ms, losses = [], [], [float(loss_s)]
+        for i in range(1, timed + 1):
+            t0 = time.perf_counter()
+            twin, met = sstep(twin, batches[i])
+            t1 = time.perf_counter()
+            sync()
+            t2 = time.perf_counter()
+            host_ms.append((t1 - t0) * 1e3)
+            step_ms.append((t2 - t0) * 1e3)
+            losses.append(float(met["loss"]))
+        peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"phase 21: non-finite loss {losses}")
+        bound = train_bound_ms(n_params, b * s)
+        med = statistics.median(step_ms)
+        out["world1"] = {
+            "bitwise": bitwise, "differ": differ[:8], "worst_rel": worst,
+            "step_ms": med, "step_ms_all": step_ms,
+            "host_ms": statistics.median(host_ms), "host_ms_all": host_ms,
+            "peak_gb": peak / 1e9, "bound_ms": bound, "losses": losses}
+        log(f"phase 21: llama3.2-1b sharded (1, 1) NCCL step, bf16 remat "
+            f"full, {b}x{s} tokens from TSAFilteredLM: {med:.3f} ms median "
+            f"of {timed} (bound {bound:.3f} ms; {bound / med:.3f} of it), "
+            f"host {statistics.median(host_ms):.3f} ms a step to enqueue, "
+            f"peak {peak / 1e9:.3f} GB (after the unsharded state is freed),"
+            f" losses {[round(x, 4) for x in losses]}")
+        del twin, sstep, data, batches
+        free()
+    finally:
+        dist.destroy_process_group()
+
+    out["gloo"] = sharded_lm_gloo(np, dev, seed, root, reduced)
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 21: total {out['seconds']:.1f} s")
+    return launches, out
+
+
+def sharded_lm_gloo(np, dev, seed, root, reduced=False):
+    """Phase 21 (b): the checks on ``GLOO_WORLD`` gloo ranks sharing the
+    card (``sharded_lm_rank``); raises on any that fails."""
+    import torch.multiprocessing as mp
+    work = tempfile.mkdtemp(dir=root / "build")
+    t0 = time.time()
+    ctx = mp.start_processes(
+        sharded_lm_rank, args=(GLOO_WORLD, free_port(), work,
+                               str(root / "src"), seed, dev.type, reduced),
+        nprocs=GLOO_WORLD, start_method="spawn", join=False)
+    deadline = time.time() + 400
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise AssertionError("phase 21: the gloo ranks did not "
+                                     "finish within 400 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    spawn_s = time.time() - t0
+    ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+             for r in range(GLOO_WORLD)]
+    for r, got in enumerate(ranks):
+        for key in ("llama", "phi3"):
+            rel = abs(got[key]["loss"] - got[key]["unsharded"]) / abs(
+                got[key]["unsharded"])
+            if not rel <= SHARD_LM_RTOL:
+                raise AssertionError(f"phase 21: rank {r} {key} loss "
+                                     f"{got[key]} ({rel:.2e})")
+        if not max(got["moe"].values()) <= SHARD_LM_MOE_ATOL:
+            raise AssertionError(f"phase 21: rank {r} MoE {got['moe']}")
+        if not got["psum_bitwise"]:
+            raise AssertionError(f"phase 21: rank {r} compressed_psum != "
+                                 f"the two-phase formula")
+        if not got["pipeline_err"] <= SHARD_LM_PP_ATOL:
+            raise AssertionError(f"phase 21: rank {r} GPipe "
+                                 f"{got['pipeline_err']}")
+        if not np.isfinite(got["elastic"]["loss"]):
+            raise AssertionError(f"phase 21: rank {r} elastic step "
+                                 f"{got['elastic']}")
+    r0 = ranks[0]
+    secs = {k: max(g["s"][k] for g in ranks) for k in r0["s"]}
+    log(f"phase 21: {GLOO_WORLD} gloo ranks on the card (fp32, 2 layers at "
+        f"full width, {SHARD_LM_LOAD['batch']}x{SHARD_LM_LOAD['seq_len']} "
+        f"tokens): llama3.2-1b (2, 2) loss {r0['llama']['loss']:.6f} vs "
+        f"unsharded {r0['llama']['unsharded']:.6f}; granite-moe a2a and "
+        f"replicated within {r0['moe']} of the local path (cf 4.0); phi3 "
+        f"pad_heads (1, 4) loss {r0['phi3']['loss']:.6f} vs "
+        f"{r0['phi3']['unsharded']:.6f}; compressed_psum bitwise the "
+        f"two-phase formula; GPipe 4 stages within "
+        f"{r0['pipeline_err']:.2e} of sequential; granite-moe's (2, 2) "
+        f"checkpoint restored onto (4, 1) ({r0['elastic']['placements']}) "
+        f"and stepped, loss "
+        f"{r0['elastic']['loss']:.4f}; seconds (slowest rank) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; spawned, ran and joined in {spawn_s:.1f} s")
+    return {"ranks": GLOO_WORLD, "spawn_s": spawn_s, "seconds": secs,
+            "llama": r0["llama"], "phi3": r0["phi3"], "moe_err": r0["moe"],
+            "pipeline_err": r0["pipeline_err"], "elastic": r0["elastic"]}
 
 
 def ptxas_summary(log_text: str):
@@ -3094,6 +3511,12 @@ def main() -> int:
     # Phase 20: the LM training path, llama3.2-1b fed by the sDTW filter.
     train_paths, train_out = phase_train(torch, np, ops, dev, args.seed)
     path_by.update(train_paths)
+
+    # Phase 21: the sharded LM, world 1 on NCCL and 4 gloo ranks.
+    shard_paths, shard_out = phase_sharded_lm(
+        torch, np, ops, dev, args.seed, pathlib.Path(__file__).resolve()
+        .parent)
+    path_by.update(shard_paths)
     path_by = {"matsa_human": human_launches, "topk_fold_human":
                topk_launches, "sdtw_spans_ecg": ecg_launches,
                "long_queries": long_launches, **path_by}
@@ -3146,6 +3569,7 @@ def main() -> int:
         f"{long_out['spans_bound_ms']:.3f} ms")
     log("lm serving (phase 19): " + json.dumps(lm_out))
     log("lm training (phase 20): " + json.dumps(train_out))
+    log("sharded lm (phase 21): " + json.dumps(shard_out))
     rows = []
     src = {"rows": "src/repro_torch/kernels/sdtw/csrc/sdtw_rows.cu",
            "chain": "src/repro_torch/kernels/sdtw/csrc/sdtw_chain.cu",

@@ -23,9 +23,12 @@ Properties, as in the reference:
   * async save — a thread does the file I/O after the device→host copy
     (joined at once on one host, keeping the production code path).
   * retention — keep_last N checkpoints are retained, older ones pruned.
-The elastic restore onto a new mesh comes with ROADMAP item 14(b):
-``restore`` places leaves on one device. numpy has no bfloat16, so a
-bf16 leaf raises (the train state holds none).
+  * elasticity — a sharded tree (DTensor leaves) is saved as full
+    tensors: every rank gathers each leaf, rank 0 writes, the others wait
+    for its word that the checkpoint is complete. ``restore(shardings=)`` places the leaves onto whatever
+    mesh the restarted job has, each rank keeping its part.
+numpy has no bfloat16, so a bf16 leaf raises (the train state holds
+none).
 """
 from __future__ import annotations
 
@@ -37,7 +40,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..models.convert import stacked_leaves
 from ..models.layers import Init
@@ -75,6 +80,8 @@ def _host(x) -> np.ndarray:
         if x.dtype == torch.bfloat16:
             raise TypeError("numpy has no bfloat16: cast the leaf before "
                             "checkpointing it")
+        if isinstance(x, DTensor):
+            x = x.full_tensor()          # collective: every rank calls it
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -96,15 +103,37 @@ def _fsync_dir(path: str):
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
          keep_last: int = 3, async_io: bool = True) -> str:
-    """Checkpoint a tree (params/opt/data state). Returns the final path."""
+    """Checkpoint a tree (params/opt/data state). Returns the final path.
+
+    Collective for a sharded tree (its mesh spanning the world): every
+    rank calls it; rank 0 writes, and every rank returns once the
+    checkpoint is complete (or raises if rank 0 failed to write it)."""
     paths, leaves = _unzip(tree)
     layout = _layout(paths)
     ref_paths = [p for p, _ in layout]
     host_leaves = [np.stack([_host(leaves[i]) for i in idx])
                    if isinstance(idx, list) else _host(leaves[idx])
                    for _, idx in layout]
-
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if any(isinstance(x, DTensor) for x in leaves):
+        failed = [None]
+        if dist.get_rank() == 0:
+            try:
+                _save(ckpt_dir, step, final, ref_paths, host_leaves, extra,
+                      keep_last, async_io)
+            except Exception as e:                  # told to every rank
+                failed = [f"{type(e).__name__}: {e}"]
+        dist.broadcast_object_list(failed, src=0)
+        if failed[0] is not None:
+            raise OSError(f"rank 0 failed to write {final}: {failed[0]}")
+        return final
+    _save(ckpt_dir, step, final, ref_paths, host_leaves, extra, keep_last,
+          async_io)
+    return final
+
+
+def _save(ckpt_dir, step, final, ref_paths, host_leaves, extra, keep_last,
+          async_io):
     tmp = final + ".tmp"
 
     def write():
@@ -141,7 +170,6 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
         # identical to the overlapped production variant.
     else:
         write()
-    return final
 
 
 def _prune(ckpt_dir: str, keep_last: int):
@@ -179,12 +207,17 @@ def _rebuild(like, new):
     return next(new)
 
 
-def restore(ckpt_dir: str, like, step: Optional[int] = None, device=None):
+def restore(ckpt_dir: str, like, step: Optional[int] = None, device=None,
+            shardings=None):
     """Restore a tree structured like ``like`` → (tree, extra, step).
 
     Leaves are new tensors on ``device``, or each on its ``like`` leaf's
     device when None (the restarted job's); an ``LM`` is a new model.
-    Raises if the checkpoint's leaves do not match ``like``'s."""
+    ``shardings`` (``launch.specs.tree_shardings``' form, ``{path:
+    (DeviceMesh, placements)}``) places each leaf onto a mesh (the
+    elastic restore); without it a leaf is placed as its ``like`` leaf
+    is (sharded or not). Raises if the checkpoint's leaves do not match
+    ``like``'s."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -211,5 +244,17 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None, device=None):
                                  f"{tuple(np.shape(want))}")
             dev = device if device is not None else (
                 want.device if isinstance(want, torch.Tensor) else "cpu")
-            new[i] = torch.from_numpy(np.array(a, order="C")).to(dev)
+            new[i] = _place(torch.from_numpy(np.array(a, order="C")).to(dev),
+                            want, None if shardings is None
+                            else shardings[tuple(paths[i])])
     return _rebuild(like, iter(new)), manifest["extra"], step
+
+
+def _place(t, want, sharding):
+    """The full tensor ``t`` placed by ``sharding`` (``(DeviceMesh,
+    placements)``), else as the ``like`` leaf ``want`` is."""
+    if sharding is None and isinstance(want, DTensor):
+        sharding = (want.device_mesh, want.placements)
+    if sharding is None:
+        return t
+    return distribute_tensor(t, *sharding, src_data_rank=None)

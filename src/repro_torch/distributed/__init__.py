@@ -1,16 +1,17 @@
-"""The sharded sDTW engine on ``torch.distributed`` (counterpart of
-``repro.distributed``): meshes of ranks (``sharding``), the systolic
-hand-off and harvest (``collectives``, which also holds the train step's
-local int8 gradient compression) and the pipeline with its entry points
-(``sdtw_sharded``). The LM stack's ``Axes``, ``tree_shardings``, GPipe
-over layers (``pipeline``) and ``compressed_psum`` wait for ROADMAP item
-14(b)."""
-from .sharding import Mesh, get_mesh, init_multi_host, pipeline_axes
+"""Distribution on ``torch.distributed`` (counterpart of
+``repro.distributed``): meshes of ranks and the LM's sharding rules
+(``sharding``: ``Mesh``, ``make_mesh``, ``get_mesh``, ``Axes``,
+``tree_shardings``), the collectives (``collectives``: the sDTW
+pipeline's hand-off and harvest, int8 gradient compression and
+``compressed_psum``), GPipe over layers (``pipeline``) and the sharded
+sDTW engine with its entry points (``sdtw_sharded``)."""
+from .sharding import (Axes, Mesh, get_mesh, init_multi_host, make_mesh,
+                       pipeline_axes, tree_shardings)
 
-__all__ = ["Mesh", "get_mesh", "init_multi_host", "pipeline_axes",
-           "sdtw_sharded", "sdtw_sharded_feed", "build_pipeline",
-           "make_schedule", "PipelineSchedule", "clear_pipeline_cache",
-           "default_mesh"]
+__all__ = ["Axes", "Mesh", "get_mesh", "init_multi_host", "make_mesh",
+           "pipeline_axes", "tree_shardings", "sdtw_sharded",
+           "sdtw_sharded_feed", "build_pipeline", "make_schedule",
+           "PipelineSchedule", "clear_pipeline_cache", "default_mesh"]
 
 _SDTW_NAMES = ("sdtw_sharded", "sdtw_sharded_feed", "build_pipeline",
                "make_schedule", "PipelineSchedule", "clear_pipeline_cache",

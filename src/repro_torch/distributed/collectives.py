@@ -3,11 +3,11 @@
 Counterparts of ``repro.distributed.collectives.neighbor_perm`` and
 ``psum_harvest``: the left-to-right systolic hand-off of the chunk carry
 (``lax.ppermute`` there, one ``dist.batch_isend_irecv`` a tick here) and
-the harvest of the last stage's results onto every rank. The local part
-of that module's gradient compression (``quantize_int8``,
-``dequantize_int8``, ``compress_with_feedback``, ``init_feedback``) is
-here for the train step's ``int8_ef`` mode; ``compressed_psum``, a
-collective of the distributed LM, waits for ROADMAP item 14(b).
+the harvest of the last stage's results onto every rank. The gradient
+compression of that module: ``quantize_int8``, ``dequantize_int8``,
+``compress_with_feedback`` (the train step's ``int8_ef`` mode, on plain
+or sharded gradients), ``init_feedback``, and the int8 all-reduce
+``compressed_psum``.
 
 A message is the carry's leaves packed into one byte buffer, so a tick
 moves one tensor each way. The wire is ``wire_device``: the tensors' own
@@ -21,10 +21,11 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models.convert import stacked_leaves
 from ..optim.adamw import named
-from .sharding import Mesh, this_rank
+from .sharding import Mesh, like, local, partial_over, this_rank
 
 
 def neighbor_perm(n: int):
@@ -160,25 +161,59 @@ def compress_with_feedback(grads: dict, feedback: dict):
     gradients' names. The scale is per tensor of the reference's tree:
     the layers of a stacked leaf (``blocks.<l>.attn.wq`` for every l)
     share one, the largest magnitude over all of them, as the reference
-    quantises its stacked ``blocks/attn/wq``."""
+    quantises its stacked ``blocks/attn/wq``. Sharded gradients (DTensors
+    placed as their feedback is) share the global largest magnitude: each
+    rank quantises its own part against it."""
     names = list(grads)
     deq, new_fb = {}, {}
     for idx in stacked_leaves([n.split(".") for n in names]).values():
         members = [names[i] for i in (idx if isinstance(idx, list)
                                       else [idx])]
-        corrected = {n: grads[n].float() + feedback[n] for n in members}
-        top = torch.stack([torch.max(torch.abs(c))
-                           for c in corrected.values()]).max()
-        scale = torch.clamp(top, min=1e-12) / 127.0
+        corrected = {n: local(grads[n]).float() + local(feedback[n])
+                     for n in members}
+        tops = torch.stack([torch.max(torch.abs(c))
+                            for c in corrected.values()])
+        ref = grads[members[0]]
+        if isinstance(ref, DTensor):
+            tops = DTensor.from_local(tops, ref.device_mesh,
+                                      partial_over(ref, "max"),
+                                      run_check=False).full_tensor()
+        scale = torch.clamp(tops.max(), min=1e-12) / 127.0
         for n, c in corrected.items():
-            deq[n] = dequantize_int8(_to_int8(c, scale), scale)
-            new_fb[n] = c - deq[n]
+            d = dequantize_int8(_to_int8(c, scale), scale)
+            deq[n], new_fb[n] = like(d, grads[n]), like(c - d, grads[n])
     return deq, new_fb
 
 
-def init_feedback(params) -> dict:
-    """Zero fp32 feedback buffers named as ``params`` (an ``nn.Module``'s
-    parameters or a dict of tensors)."""
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for n, p in named(params).items()}
+def compressed_psum(g, group=None):
+    """int8-quantised all-reduce mean of ``g`` over ``group`` (the
+    reference's ``compressed_psum`` over an axis; default: the world).
 
+    Two-phase: (1) agree on a global scale (a MAX all-reduce of the local
+    max-abs — a 4-byte collective), (2) quantise against the SHARED scale
+    and sum in int32 (no overflow below 2^23 participants), then divide
+    by the group's size. Summing int8 values quantised with heterogeneous
+    per-rank scales would be wrong — the per-rank scale is lost in the
+    integer accumulation. Wire cost: 4 bytes per grad element (int32)
+    here + 4 bytes per tensor. Without a process group the group is this
+    process alone."""
+    g = g.float()
+    top = torch.clamp(torch.max(torch.abs(g)), min=1e-12)
+    if not dist.is_initialized():
+        scale = top / 127.0
+        return _to_int8(g, scale).float() * scale / 1.0
+    wire = wire_device(g.device, group)
+    top = top.to(wire)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    scale = top.to(g.device) / 127.0
+    acc = _to_int8(g, scale).to(torch.int32).to(wire)
+    dist.all_reduce(acc, group=group)
+    n = float(dist.get_world_size(group))
+    return acc.to(g.device).float() * scale / n
+
+
+def init_feedback(params) -> dict:
+    """Zero fp32 feedback buffers named and placed as ``params`` (an
+    ``nn.Module``'s parameters or a dict of tensors)."""
+    return {n: torch.zeros_like(p, dtype=torch.float32)
+            for n, p in named(params).items()}

@@ -14,6 +14,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
+
+from ..distributed.sharding import (contiguous_strides, local_part,
+                                    partial_over, replicated, unshard)
 
 
 class Init:
@@ -70,9 +74,12 @@ def rms_norm(x, weight, eps: float):
     return (out * weight.float()).to(x.dtype)
 
 
-def swiglu(x, w_gate, w_up, w_down):
-    """SwiGLU FF."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+def swiglu(x, w_gate, w_up, w_down, axes=None):
+    """SwiGLU FF. TP: gate/up column-parallel, down row-parallel."""
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    if axes is not None:
+        h = axes.constrain(h, "dp", None, "tp")
+    return h @ w_down
 
 
 class SwiGLU(nn.Module):
@@ -105,8 +112,8 @@ def apply_rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: (..., S) int32. fp32 inside."""
     freqs = _rope_frequencies_on(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs           # (..., S, D/2)
-    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, D/2)
-    sin = torch.sin(angles)[..., None, :]
+    cos = replicated(torch.cos(angles)[..., None, :], x)    # (..., S, 1, D/2)
+    sin = replicated(torch.sin(angles)[..., None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -123,18 +130,44 @@ class Embedding(nn.Module):
 
 
 def embed(params, tokens, compute_dtype=torch.bfloat16):
-    return params.table.to(compute_dtype)[tokens]
+    table = params.table.to(compute_dtype)
+    if isinstance(table, DTensor):
+        return _embed_sharded(table, tokens)
+    return table[tokens]
 
 
-def unembed(params, x):
-    """Logits in fp32 from the (compute-dtype-rounded) table."""
-    return x.float() @ params.table.float().T
+def _embed_sharded(table, tokens):
+    """The lookup on each rank's tokens from the whole table (gathered,
+    as FSDP gathers a layer's weights): DTensor's rule for the lookup's
+    backward on a sharded table fails on torch 2.11. The table's local
+    gradient is this rank's share of the sum over the token shards."""
+    dm = table.device_mesh
+    whole = local_part(table.redistribute(dm, [Replicate()] * dm.ndim),
+                       partial_over(tokens))
+    out = whole[tokens.to_local()]
+    shape = (*tokens.shape, table.shape[-1])
+    return DTensor.from_local(out, dm, tokens.placements, run_check=False,
+                              shape=shape, stride=contiguous_strides(shape))
+
+
+def unembed(params, x, axes=None):
+    """Logits in fp32 from the (compute-dtype-rounded) table (vocab-sharded
+    over TP)."""
+    logits = x.float() @ params.table.float().T
+    if axes is not None:
+        logits = axes.constrain(logits, "dp", None, "tp")
+    return logits
 
 
 def cross_entropy_loss(logits, labels, mask=None):
-    """Token-mean cross entropy; logits fp32 (B, S, V), labels (B, S)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    """Token-mean cross entropy; logits fp32 (B, S, V), labels (B, S).
+
+    Vocab-sharded DTensor logits are gathered whole first: DTensor has no
+    rule for the label gather on a sharded dim."""
+    last = logits.ndim - 1                 # DTensor on torch 2.11 wants
+    logits = unshard(logits, last)          # non-negative dims
+    logz = torch.logsumexp(logits, dim=last)
+    gold = torch.gather(logits, last, labels[..., None].long())[..., 0]
     nll = logz - gold
     if mask is None:
         return nll.mean()

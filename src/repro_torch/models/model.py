@@ -15,9 +15,17 @@ With grad enabled ``forward`` and ``loss_fn`` cast inside the autograd
 graph, so gradients reach the fp32 masters; ``prefill`` (no grad) makes a
 detached copy once and the ``decode_step``s after it reuse it (nothing
 changes the weights while serving), where the reference casts on every
-call. The layer stack is a Python loop; ``RunConfig.scan_layers`` and
-``pad_heads`` are accepted and change nothing here (the reference gives
-the same answer either way, and pads heads only with a mesh).
+call. The layer stack is a Python loop; ``RunConfig.scan_layers`` is accepted
+and changes nothing here (the reference gives the same answer either
+way); ``pad_heads`` pads attention heads to the model axis under a mesh.
+
+Every entry point takes ``axes`` (a ``distributed.Axes``, after ``run``
+so that positional calls keep working). Under a mesh the parameters are
+DTensors (``launch.specs.tree_shardings``), the batch is placed over the
+data-parallel axes, each ``constrain`` sits where the reference's sits,
+and the constants that meet sharded activations are replicated DTensors;
+serving runs in ``axes.context()`` and keeps its cache a plain tensor
+that every rank holds whole.
 
 Rematerialisation (``RunConfig.remat``) wraps the reference's bodies: a
 dense or MoE block, a hybrid group (the shared block and its SSM layers),
@@ -44,6 +52,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt_mod
 
 from ..device import as_tensor, resolve_device
+from ..distributed.sharding import context, full
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -60,7 +69,8 @@ class RunConfig:
     attn_chunk: int = 1024
     cache_dtype: Any = torch.bfloat16
     scan_layers: bool = True     # accepted; the stack is always a loop
-    pad_heads: bool = False      # accepted; pads only with a mesh
+    # Zero-pad attention heads to TP divisibility under a mesh.
+    pad_heads: bool = False
 
     def checkpoint(self, fn):
         """``fn`` rematerialised under this config's policy when grad is
@@ -187,51 +197,70 @@ def init_lm(cfg, generator: torch.Generator = None, device=None) -> LM:
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _ffn(cfg, bp, x):
+def _ffn(cfg, bp, x, axes=None):
     """The block's FF half on its normed input → (out, aux)."""
     if cfg.has_moe:
-        return moe_mod.moe_mlp(bp.moe, cfg, x)
-    return _swiglu(bp.mlp, x), None
+        return moe_mod.moe_mlp(bp.moe, cfg, x, axes)
+    return _swiglu(bp.mlp, x, axes), None
 
 
-def _swiglu(mp, x):
-    return swiglu(x, mp.w_gate, mp.w_up, mp.w_down)
+def _swiglu(mp, x, axes=None):
+    return swiglu(x, mp.w_gate, mp.w_up, mp.w_down, axes)
 
 
-def _dense_block(cfg, run, bp, x, positions):
-    h, kv = attn_mod.attention(bp.attn, cfg, rms_norm(x, bp.ln1, cfg.norm_eps),
-                               positions, run.attn_mode, run.attn_chunk)
+def _attention(cfg, run, ap, x, positions, axes):
+    return attn_mod.attention(ap, cfg, x, positions, run.attn_mode,
+                              run.attn_chunk, axes, run.pad_heads)
+
+
+def _dense_block(cfg, run, bp, x, positions, axes=None):
+    h, kv = _attention(cfg, run, bp.attn, rms_norm(x, bp.ln1, cfg.norm_eps),
+                       positions, axes)
     x = x + h
-    h, aux = _ffn(cfg, bp, rms_norm(x, bp.ln2, cfg.norm_eps))
+    h, aux = _ffn(cfg, bp, rms_norm(x, bp.ln2, cfg.norm_eps), axes)
     return x + h, aux, kv
 
 
-def _shared_block(cfg, run, sp, x, positions):
-    h, kv = attn_mod.attention(sp.attn, cfg, rms_norm(x, sp.ln1, cfg.norm_eps),
-                               positions, run.attn_mode, run.attn_chunk)
+def _shared_block(cfg, run, sp, x, positions, axes=None):
+    h, kv = _attention(cfg, run, sp.attn, rms_norm(x, sp.ln1, cfg.norm_eps),
+                       positions, axes)
     x = x + h
-    return x + _swiglu(sp.mlp, rms_norm(x, sp.ln2, cfg.norm_eps)), kv
+    return x + _swiglu(sp.mlp, rms_norm(x, sp.ln2, cfg.norm_eps), axes), kv
 
 
-def _embed_inputs(params, batch, run):
+def _input(x, dev, axes, dtype=None):
+    """An input (a batch entry, tokens) on ``dev``, placed over the
+    data-parallel axes under a mesh."""
+    x = as_tensor(x, dev, dtype)
+    if axes is None:
+        return x
+    return axes.place(x, "dp", *([None] * (x.ndim - 1)))
+
+
+def _embed_inputs(params, batch, run, axes=None):
     dev = params.final_norm.device
     if "embeddings" in batch:
-        return as_tensor(batch["embeddings"], dev, run.compute_dtype)
-    tokens = as_tensor(batch["tokens"], dev).long()
-    return embed(params.embed, tokens, run.compute_dtype)
+        x = _input(batch["embeddings"], dev, axes, run.compute_dtype)
+    else:
+        x = embed(params.embed, _input(batch["tokens"], dev, axes).long(),
+                  run.compute_dtype)
+    if axes is not None:
+        x = axes.constrain(x, "dp", None, None)
+    return x
 
 
 def _positions(b, s, device):
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, axes=None):
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     table = params.unembed if not cfg.tie_embeddings else params.embed
-    return unembed(table, x)
+    return unembed(table, x, axes)
 
 
-def _layers(cfg, run, params, x, positions, ssm_state=None, kv_out=None):
+def _layers(cfg, run, params, x, positions, ssm_state=None, kv_out=None,
+            axes=None):
     """The layer stack over a full sequence → (x, aux sum).
 
     ``ssm_state(l)`` gives layer l's serving state to continue (and
@@ -244,13 +273,13 @@ def _layers(cfg, run, params, x, positions, ssm_state=None, kv_out=None):
         bp = params.blocks[l]
         xin = rms_norm(x, bp.ln, cfg.norm_eps)
         if ssm_state is None:
-            return x + ssm_mod.ssm_forward(bp.ssm, cfg, xin)
-        h, st = ssm_mod.ssm_forward(bp.ssm, cfg, xin, ssm_state(l))
+            return x + ssm_mod.ssm_forward(bp.ssm, cfg, xin, axes=axes)
+        h, st = ssm_mod.ssm_forward(bp.ssm, cfg, xin, ssm_state(l), axes)
         ssm_state(l, st)
         return x + h
 
     def group(g, x):
-        x, kv = _shared_block(cfg, run, params.shared, x, positions)
+        x, kv = _shared_block(cfg, run, params.shared, x, positions, axes)
         if kv_out is not None:
             kv_out(g, *kv)
         for j in range(cfg.attn_every):
@@ -258,7 +287,8 @@ def _layers(cfg, run, params, x, positions, ssm_state=None, kv_out=None):
         return x
 
     def block(l, x):
-        x, a, kv = _dense_block(cfg, run, params.blocks[l], x, positions)
+        x, a, kv = _dense_block(cfg, run, params.blocks[l], x, positions,
+                                axes)
         if kv_out is not None:
             kv_out(l, *kv)
         return x, a
@@ -280,30 +310,32 @@ def _layers(cfg, run, params, x, positions, ssm_state=None, kv_out=None):
     return x, aux
 
 
-def forward(cfg, params: LM, batch, run: RunConfig = DEFAULT_RUN):
+def forward(cfg, params: LM, batch, run: RunConfig = DEFAULT_RUN,
+            axes=None):
     """Full-sequence forward → (logits fp32 (B,S,V), aux_loss).
 
     Differentiable with respect to ``params`` when grad is enabled (the
     cast is part of the graph); without grad it refreshes the serving
-    copy of the weights."""
+    copy of the weights. Under a mesh the logits and aux are DTensors."""
     if torch.is_grad_enabled():
         p = cast_params(params, run.compute_dtype)
     else:
         p = params.compute_params(run.compute_dtype, refresh=True)
-    x = _embed_inputs(p, batch, run)
+    x = _embed_inputs(p, batch, run, axes)
     b, s, _ = x.shape
-    x, aux = _layers(cfg, run, p, x, _positions(b, s, x.device))
+    x, aux = _layers(cfg, run, p, x, _positions(b, s, x.device), axes=axes)
     if not cfg.has_ssm:
         aux = aux / cfg.n_layers
-    return _logits(p, cfg, x), aux
+    return _logits(p, cfg, x, axes), aux
 
 
-def loss_fn(cfg, params: LM, batch, run: RunConfig = DEFAULT_RUN):
-    logits, aux = forward(cfg, params, batch, run)
-    labels = as_tensor(batch["labels"], logits.device).long()
+def loss_fn(cfg, params: LM, batch, run: RunConfig = DEFAULT_RUN,
+            axes=None):
+    logits, aux = forward(cfg, params, batch, run, axes)
+    labels = _input(batch["labels"], logits.device, axes).long()
     mask = batch.get("mask")
     if mask is not None:
-        mask = as_tensor(mask, logits.device)
+        mask = _input(mask, logits.device, axes)
     ce = cross_entropy_loss(logits, labels, mask)
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
@@ -338,58 +370,68 @@ def init_cache(cfg, batch: int, max_len: int, run: RunConfig = DEFAULT_RUN,
 
 @torch.no_grad()
 def prefill(cfg, params: LM, batch, max_len: int,
-            run: RunConfig = DEFAULT_RUN):
+            run: RunConfig = DEFAULT_RUN, axes=None):
     """Process a full prompt → (last-token logits (B,V), cache).
 
     Makes the compute-dtype copy of the weights that the decode steps
     after it reuse."""
-    p = params.compute_params(run.compute_dtype, refresh=True)
-    x = _embed_inputs(p, batch, run)
-    b, s, _ = x.shape
-    cache = init_cache(cfg, b, max_len, run, x.device)
-    ssm_state = kv_out = None
-    if cfg.has_ssm:
-        def ssm_state(l, st=None):
-            if st is None:
-                return {k: a[l] for k, a in cache["ssm"].items()}
-            for k, a in cache["ssm"].items():
-                a[l].copy_(st[k])
-    if cfg.family != "ssm":
-        ks, vs = ((cache["shared_k"], cache["shared_v"])
-                  if cfg.family == "hybrid" else (cache["k"], cache["v"]))
+    with context(axes):
+        p = params.compute_params(run.compute_dtype, refresh=True)
+        x = _embed_inputs(p, batch, run, axes)
+        b, s, _ = x.shape
+        cache = init_cache(cfg, b, max_len, run, x.device)
+        ssm_state = kv_out = None
+        if cfg.has_ssm:
+            def ssm_state(l, st=None):
+                if st is None:
+                    return {k: a[l] for k, a in cache["ssm"].items()}
+                for k, a in cache["ssm"].items():
+                    a[l].copy_(full(st[k]))
+        if cfg.family != "ssm":
+            ks, vs = ((cache["shared_k"], cache["shared_v"])
+                      if cfg.family == "hybrid" else (cache["k"], cache["v"]))
 
-        def kv_out(i, k, v):
-            ks[i, :, :s] = k
-            vs[i, :, :s] = v
-    x, _ = _layers(cfg, run, p, x, _positions(b, s, x.device), ssm_state,
-                   kv_out)
-    cache["pos"].fill_(s)
-    return _logits(p, cfg, x[:, -1:])[:, 0], cache
+            def kv_out(i, k, v):
+                ks[i, :, :s] = full(k)
+                vs[i, :, :s] = full(v)
+        x, _ = _layers(cfg, run, p, x, _positions(b, s, x.device), ssm_state,
+                       kv_out, axes)
+        cache["pos"].fill_(s)
+        return full(_logits(p, cfg, x[:, -1:], axes))[:, 0], cache
 
 
 @torch.no_grad()
-def decode_step(cfg, params: LM, tokens, cache, run: RunConfig = DEFAULT_RUN):
+def decode_step(cfg, params: LM, tokens, cache, run: RunConfig = DEFAULT_RUN,
+                axes=None):
     """One decoding step. tokens: (B,) int → (logits (B,V), cache).
 
     The cache is updated in place (and returned): the new K/V are written
     at ``pos``, the SSM states replaced, ``pos`` advanced by one."""
+    with context(axes):
+        return _decode_step(cfg, params, tokens, cache, run, axes)
+
+
+def _decode_step(cfg, params, tokens, cache, run, axes):
     p = params.compute_params(run.compute_dtype)
     pos = cache["pos"]
-    tokens = as_tensor(tokens, params.device).long()
+    tokens = _input(tokens, params.device, axes).long()
     x = embed(p.embed, tokens[:, None], run.compute_dtype)
+    if axes is not None:
+        x = axes.constrain(x, "dp", None, None)
 
     def ssm_at(x, l):
         bp = p.blocks[l]
         st = {k: a[l] for k, a in cache["ssm"].items()}
         h, st2 = ssm_mod.ssm_decode_step(bp.ssm, cfg,
-                                         rms_norm(x, bp.ln, cfg.norm_eps), st)
+                                         rms_norm(x, bp.ln, cfg.norm_eps), st,
+                                         axes)
         for k, a in st.items():
-            a.copy_(st2[k])
+            a.copy_(full(st2[k]))
         return x + h
 
     def attn_at(x, ap, ln, l, ks, vs):
         return x + attn_mod.decode_attention(
-            ap, cfg, rms_norm(x, ln, cfg.norm_eps), ks[l], vs[l], pos)
+            ap, cfg, rms_norm(x, ln, cfg.norm_eps), ks[l], vs[l], pos, axes)
 
     if cfg.family == "ssm":
         for l in range(cfg.n_layers):
@@ -399,13 +441,13 @@ def decode_step(cfg, params: LM, tokens, cache, run: RunConfig = DEFAULT_RUN):
         for g in range(cfg.n_layers // cfg.attn_every):
             x = attn_at(x, sp.attn, sp.ln1, g, cache["shared_k"],
                         cache["shared_v"])
-            x = x + _swiglu(sp.mlp, rms_norm(x, sp.ln2, cfg.norm_eps))
+            x = x + _swiglu(sp.mlp, rms_norm(x, sp.ln2, cfg.norm_eps), axes)
             for j in range(cfg.attn_every):
                 x = ssm_at(x, g * cfg.attn_every + j)
     else:
         for l, bp in enumerate(p.blocks):
             x = attn_at(x, bp.attn, bp.ln1, l, cache["k"], cache["v"])
-            h, _ = _ffn(cfg, bp, rms_norm(x, bp.ln2, cfg.norm_eps))
+            h, _ = _ffn(cfg, bp, rms_norm(x, bp.ln2, cfg.norm_eps), axes)
             x = x + h
     pos.add_(1)
-    return _logits(p, cfg, x)[:, 0], cache
+    return full(_logits(p, cfg, x, axes))[:, 0], cache

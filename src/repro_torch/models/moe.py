@@ -1,11 +1,33 @@
-"""Token-choice top-k MoE in PyTorch (the unsharded path of the JAX
-package's ``models/moe.py``).
+"""Token-choice top-k MoE with expert parallelism (EP) in PyTorch (the
+JAX package's ``models/moe.py``).
 
 Each token's k slots are scattered into per-expert capacity buckets
 [E, c, d], the experts run as batched products, and the slots come back
-weighted by their gates. Capacity c = ceil(T · k · cf / E); overflow slots
-are dropped (Switch-style, no gate renormalisation after the drop). Gates
-are top-k-normalised; the router runs in fp32 with the Switch aux loss.
+weighted by their gates. Capacity c = ceil(T_local · k · cf / E);
+overflow slots are dropped (Switch-style, no gate renormalisation after
+the drop). Gates are top-k-normalised; the router runs in fp32 with the
+Switch aux loss.
+
+Under a mesh, two communication layouts over the TP ("model") axis, one
+math — the reference's ``shard_map`` body, written on each rank's local
+parts (``DTensor.to_local`` / ``from_local``):
+
+  * "a2a" (train/prefill, S divisible by TP and > 1): tokens are sharded
+    over (data × model); each rank routes its local tokens into buckets,
+    an ``all_to_all`` over the model axis delivers each expert's buckets
+    to the rank that owns it (experts are sharded over "model"), the
+    experts run, and the inverse ``all_to_all`` returns the outputs.
+  * "replicated" (decode): tokens are sharded over data only; each rank
+    runs just its local experts on all its tokens and a sum over "model"
+    combines them.
+
+Capacity is per (source rank, expert), so the paths equal the mesh-free
+one where nothing drops. ``aux`` is each rank's aux averaged over the
+ranks (close to the global aux, not equal; ranks holding the same tokens
+count once). A batch the data axes do not divide stays whole on every
+rank. The collectives are autograd functions whose backward is the
+transpose the reference's would be, given gradients that arrive
+replicated over the model axis.
 
 Ties and order follow the reference exactly:
   * top-k breaks ties toward the lower expert id (``lax.top_k``): a
@@ -20,9 +42,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..distributed.sharding import contiguous_strides, local_part
 from .layers import Init
 
 
@@ -104,13 +129,146 @@ def _capacity(t_local: int, topk: int, n_experts: int, cf: float) -> int:
     return max(1, math.ceil(t_local * topk * cf / n_experts))
 
 
-def moe_mlp(params, cfg, x):
-    """MoE FF block. x: (B, S, d) → ((B, S, d), aux_loss)."""
+def moe_mlp(params, cfg, x, axes=None):
+    """MoE FF block. x: (B, S, d) → ((B, S, d), aux_loss).
+
+    Under a mesh ``x`` and the parameters are DTensors (``Axes.place``,
+    ``launch.specs.device_put``); the output is a DTensor with the batch
+    over the data axes and ``aux`` a replicated one."""
     b, s, d = x.shape
     e, k, cf = cfg.n_experts, cfg.topk, cfg.capacity_factor
-    c = _capacity(b * s, k, e, cf)
-    x_flat = x.reshape(-1, d)
-    gates, ids, aux = _route(x_flat, params.router, e, k)
-    buckets, refs = _bucketize(x_flat, ids, gates, e, c)
-    y = _expert_ffn(buckets, params.w_gate, params.w_up, params.w_down)
-    return _unbucketize(y, refs, b * s).reshape(b, s, d), aux
+
+    if axes is None or axes.mesh is None or axes.tp is None:
+        c = _capacity(b * s, k, e, cf)
+        x_flat = x.reshape(-1, d)
+        gates, ids, aux = _route(x_flat, params.router, e, k)
+        buckets, refs = _bucketize(x_flat, ids, gates, e, c)
+        y = _expert_ffn(buckets, params.w_gate, params.w_up, params.w_down)
+        return _unbucketize(y, refs, b * s).reshape(b, s, d), aux
+
+    mesh = axes.mesh
+    tp_size = axes.tp_size
+    if e % tp_size:
+        raise ValueError(f"n_experts={e} must divide TP size {tp_size}")
+    e_local = e // tp_size
+    use_a2a = s % tp_size == 0 and s > 1
+    n_dp = math.prod(mesh.shape[a] for a in axes.dp)
+    # A batch the data axes do not divide stays whole on every rank (as
+    # ``Axes.constrain`` leaves it).
+    dp = "dp" if b % n_dp == 0 else None
+    x_dims = (dp, "tp" if use_a2a else None, None)
+    t_local = (b * s) // ((n_dp if dp else 1) * (tp_size if use_a2a else 1))
+    c = _capacity(t_local, k, e, cf)
+    dm = mesh.device_mesh(x.device.type)
+    tp_dim = mesh.dtensor_dims.index(axes.tp)
+    x_pl = axes.placements(axes.spec(*x_dims))
+    # The mesh dims over which ranks hold different tokens.
+    split = [isinstance(p, Shard) for p in x_pl]
+
+    def part(t, dims, grad):
+        """This rank's part of ``t`` placed by ``dims``; ``grad``: how the
+        part's gradient combines, a placement a mesh dim."""
+        if not isinstance(t, DTensor):
+            raise TypeError("under a mesh moe_mlp takes DTensors: place x "
+                            "with Axes.place and the weights with "
+                            "launch.specs.device_put")
+        return local_part(t.redistribute(dm, axes.placements(
+            axes.spec(*dims))), grad)
+
+    def param_grad(on_tp):
+        """A parameter part's gradient: each rank's share of the sum over
+        the dims that split the tokens, whole across the others."""
+        return tuple(on_tp if i == tp_dim else
+                     (Partial() if split[i] else Replicate())
+                     for i in range(len(x_pl)))
+
+    # Tokens: on the replicated path every model rank holds all of its
+    # row's tokens and each contributes a share of their gradient.
+    x_l = part(x, x_dims, x_pl if use_a2a else tuple(
+        Partial() if i == tp_dim else p for i, p in enumerate(x_pl)))
+    router = part(params.router, (), param_grad(Partial()))
+    w = [part(params_w, ("tp", None, None), param_grad(Shard(0)))
+         for params_w in (params.w_gate, params.w_up, params.w_down)]
+
+    group = mesh.group(axes.tp)
+    bl, sl, _ = x_l.shape
+    t = bl * sl
+    x_flat = x_l.reshape(t, d)
+    gates, ids, aux = _route(x_flat, router, e, k)
+    if use_a2a:
+        buckets, refs = _bucketize(x_flat, ids, gates, e, c)
+        recv = _AllToAll.apply(buckets, group)              # (tp*E_l, c, d)
+        xin = (recv.reshape(tp_size, e_local, c, d).transpose(0, 1)
+               .reshape(e_local, tp_size * c, d))
+        y = _expert_ffn(xin, *w)
+        y = (y.reshape(e_local, tp_size, c, d).transpose(0, 1)
+             .reshape(tp_size * e_local, c, d))
+        yback = _AllToAll.apply(y, group)                   # (E, c, d)
+        out = _unbucketize(yback, refs, t)
+    else:
+        shard = mesh.coords()[axes.tp]
+        buckets, refs = _bucketize(x_flat, ids, gates, e_local, c,
+                                   expert_offset=shard * e_local)
+        y = _expert_ffn(buckets, *w)
+        out = _SumOver.apply(_unbucketize(y, refs, t), (group,))
+    # The mean of the aux over the model axis and the dims that split the
+    # tokens (ranks that hold the same tokens count once).
+    over = [i for i in range(len(x_pl)) if i == tp_dim or split[i]]
+    aux = _SumOver.apply(aux, tuple(mesh.group(mesh.dtensor_dims[i])
+                                    for i in over))
+    aux = aux / math.prod(dm.size(i) for i in over)
+    out = DTensor.from_local(out.reshape(bl, sl, d), dm, x_pl,
+                             run_check=False, shape=x.shape,
+                             stride=contiguous_strides(x.shape))
+    aux = DTensor.from_local(aux, dm, [Replicate()] * len(x_pl),
+                             run_check=False)
+    # back to the activations' layout (batch over the data axes) for the
+    # residual add: torch 2.11's DTensor cannot flatten the sequence
+    # sharded over "model" in the next layer's products
+    return axes.constrain(out, "dp", None, None), aux
+
+
+def _wire(x, group):
+    """``x`` on the device a message to ``group`` travels on, and back."""
+    from ..distributed.collectives import wire_device
+    wire = wire_device(x.device, group)
+    return x.to(wire), (lambda y: y.to(x.device))
+
+
+class _AllToAll(torch.autograd.Function):
+    """Tiled all-to-all over ``group`` along dim 0 (``lax.all_to_all``
+    with split_axis = concat_axis = 0, tiled): its own transpose."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x, group):
+    send, back = _wire(x.contiguous(), group)
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=group)
+    return back(out)
+
+
+class _SumOver(torch.autograd.Function):
+    """``psum`` over each group of ``groups`` in turn (the sum over their
+    product). The output is the same on every rank and its gradient
+    arrives replicated, so each rank's share passes it on unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        for g in groups:
+            send, back = _wire(x.clone(), g)
+            dist.all_reduce(send, group=g)
+            x = back(send)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None

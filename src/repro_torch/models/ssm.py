@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import pad as pad_
+from ..distributed.sharding import replicated
 from .layers import Init, rms_norm
 
 
@@ -59,8 +61,8 @@ def _causal_conv(x, w, state=None):
     given, returns (out, new_state)."""
     width = w.shape[0]
     if state is None:
-        pad = torch.zeros((x.shape[0], width - 1, x.shape[-1]),
-                          dtype=x.dtype, device=x.device)
+        pad = replicated(torch.zeros((x.shape[0], width - 1, x.shape[-1]),
+                                     dtype=x.dtype, device=x.device), x)
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -85,8 +87,8 @@ def _ssd_chunked(cfg, xh, dt, a, b, c):
         # Pad with identity steps (dt=0 → a=0, zero input → state preserved,
         # padded outputs sliced off below).
         pad = L - s % L
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt, a, b, c = (F.pad(t, (0, 0, 0, pad)) for t in (dt, a, b, c))
+        xh = pad_(xh, (0, 0, 0, 0, 0, pad))
+        dt, a, b, c = (pad_(t, (0, 0, 0, pad)) for t in (dt, a, b, c))
         s = xh.shape[1]
     nc = s // L
     xc = xh.reshape(bs, nc, L, h, p).float()
@@ -101,7 +103,8 @@ def _ssd_chunked(cfg, xh, dt, a, b, c):
     # ---- intra-chunk (quadratic dual form) ----
     g = torch.einsum("bctn,bcsn->bcts", cc, bc)      # (B,nc,L,L)
     darg = cs[:, :, :, None, :] - cs[:, :, None, :, :]            # t,s,H
-    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=xh.device))
+    tri = replicated(torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                           device=xh.device)), xh)
     decay = torch.exp(torch.where(tri[None, None, :, :, None], darg, -1e30))
     scores = g[..., None] * decay * dtc[:, :, None, :, :]         # (B,nc,t,s,H)
     y_intra = torch.einsum("bctsh,bcshp->bcthp", scores, xc)
@@ -112,7 +115,8 @@ def _ssd_chunked(cfg, xh, dt, a, b, c):
 
     # ---- loop over chunks: prefix states ----
     seg_decay = torch.exp(seg_end[:, :, 0, :])       # (B,nc,H)
-    hcur = torch.zeros((bs, h, p, n), dtype=torch.float32, device=xh.device)
+    hcur = replicated(torch.zeros((bs, h, p, n), dtype=torch.float32,
+                                  device=xh.device), xh)
     prefix = []
     for j in range(nc):
         prefix.append(hcur)                          # state BEFORE chunk j
@@ -126,7 +130,7 @@ def _ssd_chunked(cfg, xh, dt, a, b, c):
     return y, hcur
 
 
-def ssm_forward(params, cfg, x, state=None):
+def ssm_forward(params, cfg, x, state=None, axes=None):
     """Full-sequence SSD layer. x: (B,S,d) → (B,S,d).
 
     state: optional dict(h, conv) for serving; when given, returns
@@ -140,6 +144,10 @@ def ssm_forward(params, cfg, x, state=None):
     xs = _causal_conv(xs_raw, params.conv_x)
     b = _causal_conv(b_raw, params.conv_b)
     c = _causal_conv(c_raw, params.conv_c)
+    if axes is not None:
+        tdi = axes.tp_if_divisible(cfg.d_inner)
+        xs = axes.constrain(xs, "dp", None, tdi)
+        z = axes.constrain(z, "dp", None, tdi)
 
     dtf = F.softplus(dt.float() + params.dt_bias.float())
     a = -torch.exp(params.A_log.float()) * dtf                   # (B,S,H)
@@ -155,9 +163,10 @@ def ssm_forward(params, cfg, x, state=None):
     return out, dict(state, h=hfin, conv=tail.to(state["conv"].dtype))
 
 
-def ssm_decode_step(params, cfg, x, state):
+def ssm_decode_step(params, cfg, x, state, axes=None):
     """Single-token recurrence. x: (B,1,d); state: {h (B,H,P,N) fp32,
-    conv (B, W-1, d_inner+2N)} → (out (B,1,d), new_state)."""
+    conv (B, W-1, d_inner+2N)} → (out (B,1,d), new_state). ``axes`` is
+    accepted and unused, as in the reference."""
     bs = x.shape[0]
     h, p, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     di = cfg.d_inner

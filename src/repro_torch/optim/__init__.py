@@ -1,6 +1,7 @@
 """The optimizer of the LM stack (the JAX package's ``repro.optim``)."""
-from .adamw import (OptConfig, adamw_update, clip_by_global_norm, global_norm,
-                    init_opt, schedule)
+from .adamw import (OptConfig, TornStateError, Workspace, adamw_update,
+                    clip_by_global_norm, global_norm, init_opt, schedule)
 
 __all__ = ["OptConfig", "init_opt", "adamw_update", "schedule",
-           "clip_by_global_norm", "global_norm"]
+           "clip_by_global_norm", "global_norm", "TornStateError",
+           "Workspace"]

@@ -1,6 +1,7 @@
 """Training step in PyTorch (the JAX package's ``train/train_step.py``):
 autograd through the model's remat, microbatch gradient accumulation and
-optional int8 gradient compression with error feedback, on one device.
+optional int8 gradient compression with error feedback, on one device or
+sharded over a mesh.
 
 The train state is ``{"params": LM, "opt": {"m", "v", "step"}}`` (plus
 ``"feedback"`` under ``int8_ef``): ``m``, ``v`` and ``feedback`` are fp32
@@ -8,7 +9,19 @@ tensors named as the ``LM``'s parameters, ``step`` an int32 tensor. A
 step consumes its state: the parameters and moments are updated in place
 (as a JAX step with donated buffers), and the state it returns is the
 one to use. Metrics stay tensors on the device; nothing in a step waits
-for the host. Sharded training (``axes``) comes with ROADMAP item 14(b).
+for the host.
+
+With ``axes`` (a mesh), the state is sharded (``launch.specs.
+tree_shardings``, placed with ``device_put``): the batch — global, the
+same on every rank — is placed over the data-parallel axes, the
+gradients come back placed as their parameters (DTensor reduces them),
+int8 compression shares each leaf's global largest magnitude, and the
+norm is global. The metrics are plain tensors, the same on every rank.
+
+The update is a transaction as far as memory goes (``optim.adamw``):
+gradients and the int8 feedback are computed before it, and it allocates
+everything before its first in-place write, in a ``Workspace`` that the
+step keeps.
 """
 from __future__ import annotations
 
@@ -19,8 +32,9 @@ import torch
 
 from ..device import as_tensor
 from ..distributed.collectives import compress_with_feedback, init_feedback
+from ..distributed.sharding import full
 from ..models import loss_fn
-from ..optim import OptConfig, adamw_update, init_opt
+from ..optim import OptConfig, Workspace, adamw_update, init_opt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,23 +54,26 @@ def init_train_state(cfg, params, tcfg: TrainConfig):
     return state
 
 
-def _no_axes(axes):
-    if axes is not None:
-        raise NotImplementedError(
-            "sharded training (axes) comes with ROADMAP item 14(b)")
+def _placed_as(g, p):
+    """The gradient ``g`` placed as its parameter ``p`` is."""
+    if hasattr(p, "placements") and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg, run, tcfg: TrainConfig, axes=None):
     """Returns train_step(state, batch) → (state, metrics)."""
-    _no_axes(axes)
+    workspace = Workspace()
 
     def grads_of(params, batch):
         names, leaves = zip(*params.named_parameters())
-        loss, metrics = loss_fn(cfg, params, batch, run)
+        loss, metrics = loss_fn(cfg, params, batch, run, axes)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return dict(zip(names, grads)), dict(metrics, loss=loss.detach())
+        grads = [_placed_as(g, p) for g, p in zip(grads, leaves)]
+        metrics = {k: full(v).detach() for k, v in metrics.items()}
+        return dict(zip(names, grads)), dict(metrics,
+                                             loss=full(loss).detach())
 
     def accumulate(params, batch):
         k = tcfg.microbatches
@@ -65,7 +82,7 @@ def make_train_step(cfg, run, tcfg: TrainConfig, axes=None):
             return grads_of(params, batch)
         split = {key: v.reshape(k, v.shape[0] // k, *v.shape[1:])
                  for key, v in batch.items()}
-        grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        grads = {n: torch.zeros_like(p, dtype=torch.float32)
                  for n, p in params.named_parameters()}
         zero = torch.zeros((), dtype=torch.float32, device=params.device)
         metrics = {"ce": zero, "aux": zero, "loss": zero}
@@ -84,7 +101,7 @@ def make_train_step(cfg, run, tcfg: TrainConfig, axes=None):
         if tcfg.grad_compression == "int8_ef":
             grads, new_fb = compress_with_feedback(grads, state["feedback"])
         params, opt, stats = adamw_update(
-            tcfg.opt, state["params"], grads, state["opt"])
+            tcfg.opt, state["params"], grads, state["opt"], workspace)
         new_state = {"params": params, "opt": opt}
         if tcfg.grad_compression == "int8_ef":
             new_state["feedback"] = new_fb
@@ -94,10 +111,8 @@ def make_train_step(cfg, run, tcfg: TrainConfig, axes=None):
 
 
 def make_eval_step(cfg, run, axes=None):
-    _no_axes(axes)
-
     @torch.no_grad()
     def eval_step(params, batch):
-        loss, metrics = loss_fn(cfg, params, batch, run)
-        return dict(metrics, loss=loss)
+        loss, metrics = loss_fn(cfg, params, batch, run, axes)
+        return {k: full(v) for k, v in dict(metrics, loss=loss).items()}
     return eval_step

@@ -38,6 +38,7 @@ from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.ft import FailureInjector, RunnerConfig, TrainingRunner
 from repro_torch.launch.train import build
 from repro_torch.optim import OptConfig
+from repro_torch.optim import adamw as topt_adamw
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
 CFG = get_arch("llama3.2-1b").reduced()
@@ -208,8 +209,11 @@ def test_launch_train_cli_matches_reference(tmp_path, capsys, monkeypatch):
     assert ckpt.latest_step(str(tmp_path / "t")) == 3
 
 
-def test_launch_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="14"):
+def test_launch_train_refuses_a_mesh(monkeypatch):
+    """A mesh the world cannot hold is refused (with no process group and
+    no ``torchrun`` environment the world is this process alone)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="world"):
         build("llama3.2-1b", "reduced", "2x2", seq_len=8, global_batch=2,
               lr=1e-3, steps=2, microbatches=1, compression=None,
               data_kind="synthetic", seed=0, device="cpu")
@@ -260,3 +264,150 @@ def test_launch_train_fault_tolerance_tsa(tmp_path, one_thread):
     for (n, a), (_, b) in zip(outs[0]["state"]["params"].named_parameters(),
                               outs[1]["state"]["params"].named_parameters()):
         assert torch.equal(a, b), n
+
+
+# ---------------------------------------------------------------------------
+# The train step as a transaction: a failure inside the AdamW update.
+# ---------------------------------------------------------------------------
+
+class _FailInside:
+    """Raise ``exc`` once, from ``fn``'s ``call``-th call (0-based) within
+    step ``at``; the runner's ``delay_hook`` tells it the step."""
+
+    def __init__(self, fn, at: int, call: int, exc):
+        self.fn, self.at, self.call, self.exc = fn, at, call, exc
+        self.step, self.calls, self.fired = None, 0, False
+
+    def hook(self, step):
+        self.step, self.calls = step, 0
+        return 0.0
+
+    def __call__(self, *a, **kw):
+        if self.step == self.at and not self.fired:
+            self.calls += 1
+            if self.calls > self.call:
+                self.fired = True
+                raise self.exc
+        return self.fn(*a, **kw)
+
+
+def _states_equal(a, b):
+    a, b = dict(_tensors(a)), dict(_tensors(b))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def _jax_runner_steps(tmp, steps, fail_at, ckpt_every):
+    """The JAX runner's (restarts, logged steps) with a FailureInjector."""
+    from repro import ft as jft
+    from repro.data import DataConfig as JDataConfig
+    from repro.data import SyntheticLM as JSyntheticLM
+    from repro.train import make_train_step as jmake_step
+    jcfg = jconfigs.get_arch("llama3.2-1b").reduced()
+    jtc = JTrainConfig(opt=jopt.OptConfig(lr=1e-3, warmup_steps=2,
+                                          total_steps=50))
+    state = jinit_state(jcfg, jm.init_lm(jcfg, jax.random.PRNGKey(0)), jtc)
+    out = jft.TrainingRunner(
+        jax.jit(jmake_step(jcfg, jm.RunConfig(remat="none"), jtc)),
+        JSyntheticLM(JDataConfig(seed=7, seq_len=16, global_batch=4,
+                                 vocab=jcfg.vocab)), state, tmp,
+        jft.RunnerConfig(total_steps=steps, ckpt_every=ckpt_every),
+        injector=jft.FailureInjector(fail_at)).run()
+    return out["restarts"], [m["step"] for m in out["metrics"]]
+
+
+def test_allocation_failure_before_the_first_write_restarts_as_reference(
+        tmp_path, monkeypatch):
+    """An OOM at the update's workspace (before its first write), with no
+    checkpoint: the state is the last good one and the runner starts again
+    at step 0, as the JAX runner does after a failure at that step —
+    bitwise the port's run with a FailureInjector there."""
+    monkeypatch.setattr(topt_adamw, "GROUP_ELEMENTS", 1 << 12)
+    fail = _FailInside(topt_adamw.Workspace.get, at=2, call=0,
+                       exc=torch.OutOfMemoryError("injected at the "
+                                                  "workspace"))
+    monkeypatch.setattr(topt_adamw.Workspace, "get",
+                        lambda self, *a: fail(self, *a))
+    got = _runner(str(tmp_path / "a"), steps=4, delay_hook=fail.hook).run()
+    monkeypatch.undo()
+    monkeypatch.setattr(topt_adamw, "GROUP_ELEMENTS", 1 << 12)
+    want = _runner(str(tmp_path / "b"), steps=4,
+                   injector=FailureInjector(fail_at=(2,))).run()
+    assert fail.fired and got["restarts"] == want["restarts"] == 1
+    _states_equal(got["state"], want["state"])
+    steps = [m["step"] for m in got["metrics"]]
+    assert steps == [m["step"] for m in want["metrics"]] == [0, 1, 0, 1, 2, 3]
+    assert (1, steps) == _jax_runner_steps(str(tmp_path / "j"), 4, (2,),
+                                           ckpt_every=10)
+
+
+def _torn_runner(tmp, monkeypatch, steps, ckpt_every):
+    """A runner whose update raises after its first piece has written, at
+    step 7."""
+    monkeypatch.setattr(topt_adamw, "GROUP_ELEMENTS", 1 << 12)
+    fail = _FailInside(topt_adamw._views, at=7, call=4,
+                       exc=RuntimeError("injected after the first write"))
+    monkeypatch.setattr(topt_adamw, "_views", fail)
+    data = SyntheticLM(DataConfig(seed=7, seq_len=16, global_batch=4,
+                                  vocab=CFG.vocab))
+    lm = tm.init_lm(CFG, torch.Generator().manual_seed(0), "cpu")
+    r = TrainingRunner(make_train_step(CFG, RUN, TCFG), data,
+                       init_train_state(CFG, lm, TCFG), tmp,
+                       RunnerConfig(total_steps=steps, ckpt_every=ckpt_every),
+                       delay_hook=fail.hook)
+    return r, fail
+
+
+def test_torn_update_restores_the_checkpoint(tmp_path, monkeypatch):
+    """A raise after the update's first piece has written, with a
+    checkpoint: the runner restores it (new tensors) and replays — bitwise
+    the uninterrupted run and the run with a FailureInjector there."""
+    r, fail = _torn_runner(str(tmp_path / "a"), monkeypatch, 10, 3)
+    got = r.run()
+    monkeypatch.undo()
+    monkeypatch.setattr(topt_adamw, "GROUP_ELEMENTS", 1 << 12)
+    assert fail.fired and got["restarts"] == 1
+    want = _runner(str(tmp_path / "b"),
+                   injector=FailureInjector(fail_at=(7,))).run()
+    _states_equal(got["state"], want["state"])
+    _states_equal(got["state"], _runner(str(tmp_path / "c")).run()["state"])
+
+
+def test_torn_update_without_a_checkpoint_is_not_continued(tmp_path,
+                                                           monkeypatch):
+    """The same raise before any checkpoint: the runner raises and says
+    the state is torn (it does not continue from a half-updated state)."""
+    r, fail = _torn_runner(str(tmp_path / "a"), monkeypatch, 10, 100)
+    with pytest.raises(RuntimeError, match="torn") as err:
+        r.run()
+    assert fail.fired and isinstance(err.value.__cause__,
+                                     topt_adamw.TornStateError)
+    assert [m["step"] for m in r.metrics_log] == list(range(7))
+
+
+def test_a_failure_on_one_rank_fails_the_step_on_every_rank(tmp_path):
+    """Two gloo ranks step one (1, 2)-sharded state, and rank 1 alone
+    fails at step 2, at its update's workspace, while rank 0 finishes the
+    step (``tests/_torch_sharded_lm_check.py``'s ``check_runner``). The
+    ranks agree on the outcome: with a checkpoint both restore it and
+    replay, bitwise the uninterrupted run; with none the state is mixed
+    and both raise "torn"; when both fail there, both start again at step
+    0, as the reference's runner does."""
+    from _torch_sharded_lm_check import run_ranks
+    ranks = run_ranks({}, tmp_path, 2, runner=True)
+    for r, got in enumerate(ranks):
+        assert int(got["clean/restarts"]) == 0, r
+        assert int(got["ckpt/restarts"]) == 1, r
+        assert got["ckpt/steps"].tolist() == [0, 1, 2, 3], r
+        for k in got:
+            if k.startswith("clean/state/"):
+                np.testing.assert_array_equal(
+                    got["ckpt/state/" + k[len("clean/state/"):]], got[k],
+                    err_msg=f"rank {r} {k}")
+        assert "torn" in str(got["none/error"]), r
+        assert str(got["none/cause"]) == "TornStateError", r
+        assert got["none/steps"].tolist() == [0, 1], r
+        assert "both/error" not in got, r
+        assert int(got["both/restarts"]) == 1, r
+        assert got["both/steps"].tolist() == [0, 1, 0, 1, 2, 3], r

@@ -165,3 +165,25 @@ def test_serve_lm_cli_prints_the_reference_keys():
             "tokens_per_s", "sample_output"} <= set(out)
     assert out["arch"] == "zamba2-2.7b" and out["batch"] == 2
     assert out["device"] == "cpu" and len(out["sample_output"]) == 4
+
+
+def test_moe_greedy_decode_at_full_width_equals_the_reference():
+    """granite-moe-1b-a400m cut to 2 layers at full width (32 experts, top
+    8, vocab 49,155), fp32, 8 prompts of 16, 8 greedy steps: the same
+    tokens in both packages. At decode a batch of 8 has capacity
+    ceil(8·8·1.25/32) = 3 a expert, so slots drop in both alike."""
+    import dataclasses
+    import jax
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+    name = "granite-moe-1b-a400m"
+    jcfg = dataclasses.replace(jconfigs.get_arch(name), n_layers=2)
+    tcfg = dataclasses.replace(tconfigs.get_arch(name), n_layers=2)
+    jp = jm.init_lm(jcfg, jax.random.PRNGKey(0))
+    lm = tm.lm_from_jax(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    prompt = np.random.default_rng(19).integers(0, jcfg.vocab, (8, 16)) \
+        .astype(np.int32)
+    want = np.asarray(jserve.generate(jcfg, jp, jnp.asarray(prompt), 8,
+                                      JRUN32))
+    got = generate(tcfg, lm, torch.as_tensor(prompt), 8, TRUN32).numpy()
+    np.testing.assert_array_equal(got, want)

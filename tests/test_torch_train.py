@@ -45,6 +45,7 @@ from repro.train import make_train_step as jmake_step
 from repro_torch import configs as tconfigs
 from repro_torch import models as tm
 from repro_torch import optim as topt
+from repro_torch.distributed import Axes
 from repro_torch.distributed import collectives as tcol
 from repro_torch.train import TrainConfig, make_eval_step, make_train_step
 
@@ -360,8 +361,13 @@ def test_eval_step_and_axes():
     got = make_eval_step(tcfg, TRUN32)(state["params"], batch)
     assert not got["loss"].requires_grad
     np.testing.assert_allclose(float(got["loss"]), float(want), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="14"):
-        make_train_step(tcfg, TRUN32, TrainConfig(), axes=object())
+    # Axes without a mesh are the mesh-free path, as in the reference.
+    axes = Axes.from_mesh(None)
+    again = make_eval_step(tcfg, TRUN32, axes)(state["params"], batch)
+    assert torch.equal(again["loss"], got["loss"])
+    _, met = make_train_step(tcfg, TRUN32, TrainConfig(), axes=axes)(
+        state, batch)
+    np.testing.assert_allclose(float(met["loss"]), float(want), rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -498,12 +504,15 @@ def test_int8_ef_three_steps_equal_reference():
 
 
 def test_training_imports_no_jax_and_no_reference():
-    """The training packages import neither ``jax`` nor ``repro``."""
+    """The training packages, the sharded LM's included, import neither
+    ``jax`` nor ``repro``."""
     root = pathlib.Path(__file__).parents[1] / "src" / "repro_torch"
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b(?!_torch)",
                      re.M)
     mods = ["optim", "train", "checkpoint", "ft", "launch/train.py",
-            "distributed/collectives.py", "models"]
+            "launch/mesh.py", "launch/specs.py", "distributed/sharding.py",
+            "distributed/collectives.py", "distributed/pipeline.py",
+            "models"]
     for m in mods:
         files = ([root / m] if m.endswith(".py")
                  else sorted((root / m).rglob("*.py")))
@@ -511,7 +520,8 @@ def test_training_imports_no_jax_and_no_reference():
             assert not bad.search(f.read_text()), f
     code = ("import sys, repro_torch.optim, repro_torch.train, "
             "repro_torch.checkpoint, repro_torch.ft, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.specs, "
+            "repro_torch.distributed.pipeline; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")

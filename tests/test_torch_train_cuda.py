@@ -12,8 +12,9 @@ the two differ only in summation order: loss and grad norm within
 deterministic on the card: a run resumed from a checkpoint after an
 injected failure, and a second run from the same seed, end with the
 same state bitwise (bf16 compute, remat, the MoE's accumulating index
-backward included); and a step waits for the host nowhere (CUDA's sync
-debug mode raises on any synchronising call).
+backward included); a step waits for the host nowhere (CUDA's sync
+debug mode raises on any synchronising call); and the sharded step on a
+one-rank NCCL (1, 1) mesh equals the unsharded one bitwise.
 """
 import dataclasses
 
@@ -163,3 +164,52 @@ def test_train_step_makes_no_host_sync(cuda, name, k):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(v.device.type == "cuda" for v in met.values())
+
+
+@pytest.fixture
+def world1(cuda):
+    """A one-rank NCCL process group for the test, destroyed after it."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.distributed import init_multi_host
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    init_multi_host(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "granite-moe-1b-a400m"])
+def test_world1_sharded_step_equals_the_unsharded_step(cuda, world1, name):
+    """The sharded code path on a (1, 1) ``("data", "model")`` mesh
+    (DTensor state, ``Axes.from_mesh``; the MoE through its all-to-all)
+    takes the unsharded step's loss and masters bitwise (bf16, remat
+    full)."""
+    from repro_torch.distributed import Axes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import device_put, tree_shardings
+    cfg = cut(name)
+    axes = Axes.from_mesh(make_mesh((1, 1), ("data", "model")))
+    out = []
+    for a in (None, axes):
+        lm = tm.init_lm(cfg, torch.Generator(device=cuda).manual_seed(25),
+                        cuda)
+        state = init_train_state(cfg, lm, TCFG)
+        if a is not None:
+            state = device_put(state, tree_shardings(state, a, "train"))
+        batch = batch_for(cfg, torch.Generator(device=cuda).manual_seed(26),
+                          cuda, b=4, s=64)
+        state, met = make_train_step(cfg, tm.RunConfig(), TCFG, a)(state,
+                                                                    batch)
+        out.append((met["loss"].cpu(), {
+            n: (p.full_tensor() if hasattr(p, "full_tensor") else p)
+            .detach().cpu() for n, p in state["params"].named_parameters()}))
+        del state, lm
+    (la, pa), (lb, pb) = out
+    assert torch.equal(la, lb), (float(la), float(lb))
+    for n in pa:
+        assert torch.equal(pa[n], pb[n]), n
