@@ -160,7 +160,20 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      ``compressed_psum`` against the numpy two-phase formula (bitwise);
      GPipe over 4 stages against the sequential run (the ranks route
      gloo's functional all-gather of CUDA tensors through the host,
-     ``stage_gloo_all_gather``); then the JSON lines.
+     ``stage_gloo_all_gather``); phases 20 and 21 print ``mfu``
+     (``launch.roofline.model_flops`` over the step time at the bf16
+     peak) beside their bound share;
+ 22. the dry run (``repro_torch.launch.{roofline,specs,dryrun}``): (a)
+     a subprocess on a fake world of 1 with fake CUDA tensors counts
+     phase 20's llama3.2-1b cell (16 layers, 8 × 512, bf16, remat full,
+     dense attention, mesh (1, 1)): flops and live bytes; (b) one more
+     real step on phase 20's state under ``FlopCounterMode`` with the
+     peak reset: its flops must equal (a)'s, and its peak be within
+     ``DRYRUN_MEM_RTOL`` of (a)'s live bytes; (c) ``mfu`` of phase 20's
+     median step; (d) ``python -m repro_torch.launch.dryrun --arch
+     llama3.2-1b --shape train_4k --acct extrapolated`` with its default
+     device (fake CUDA tensors on a fake world of 256), its record
+     printed; then the JSON lines.
 
 Every path runs on ``kernel="auto"``'s choice under the engine's default
 ``tune='model'`` (the shipped tuning table, else the cost model, which
@@ -194,8 +207,16 @@ import sys
 import tempfile
 import time
 
-#: Peak device memory rate of an H100 SXM (NVIDIA's data sheet), bytes/s.
-HBM_BYTES_PER_S = 3.35e12
+
+
+def h100(key: str) -> float:
+    """A rate of one H100 SXM from ``repro_torch.launch.roofline.H100``
+    (NVIDIA's data sheet): ``"peak_flops"`` (dense bf16, op/s),
+    ``"hbm_bw"`` (bytes/s)."""
+    from repro_torch.launch.roofline import H100
+    return H100[key]
+
+
 #: INT32 lanes per SM on Hopper; the int32 rate is SMs × lanes × SM clock.
 INT32_LANES_PER_SM = 64
 #: int32 instructions the card needs per DP cell, as nvcc emits the
@@ -2022,8 +2043,6 @@ LM_FAMILIES = {"dense": "llama3.2-1b", "moe": "granite-moe-1b-a400m",
                "ssm": "mamba2-780m", "hybrid": "zamba2-2.7b"}
 #: The served load: prompts × prompt tokens, then greedy decode steps.
 LM_SERVE = dict(batch=8, prompt_len=512, gen=64)
-#: Dense bf16 tensor-core peak of an H100 SXM (NVIDIA's data sheet), op/s.
-BF16_FLOPS = 989e12
 #: fp32 tolerances on the card: against the CPU (logits; cache leaves as
 #: a share of the leaf's largest magnitude) and prefill's last logits
 #: against ``forward``'s on the card. Measured on an H100 (TF32 off): at
@@ -2121,7 +2140,7 @@ def lm_bound_ms(cfg, lm, b: int, s: int, gen: int, experts):
     read = total - untied                       # bf16 weights, read once
     pairs = b * s * (s + 1) // 2
     pre_ops = 2 * b * s * body + 2 * b * d * v + 4 * h * dh * pairs * n_attn
-    pre_t = (pre_ops / BF16_FLOPS, 2 * read / HBM_BYTES_PER_S)
+    pre_t = (pre_ops / h100("peak_flops"), 2 * read / h100("hbm_bw"))
     ctx = s + gen // 2
     if untied:
         read += b * d                           # the rows gathered
@@ -2132,7 +2151,7 @@ def lm_bound_ms(cfg, lm, b: int, s: int, gen: int, experts):
            * cfg.ssm_state * 4) if cfg.has_ssm else 0
     dec_bytes = 2 * read + kv + ssm + b * v * 4
     dec_ops = 2 * b * (body + d * v) + 4 * h * dh * b * ctx * n_attn
-    dec_t = (dec_ops / BF16_FLOPS, dec_bytes / HBM_BYTES_PER_S)
+    dec_t = (dec_ops / h100("peak_flops"), dec_bytes / h100("hbm_bw"))
 
     def bound(t):
         return max(t) * 1e3, "operations" if t[0] > t[1] else "bytes"
@@ -2469,7 +2488,16 @@ def train_profile(torch, fn, sync, top: int = 10):
 def train_bound_ms(n_params: int, tokens: int):
     """A train step's least time: 8·N·T operations (forward, the remat's
     second forward, backward) at the bf16 peak, in ms."""
-    return 8 * n_params * tokens / BF16_FLOPS * 1e3
+    return 8 * n_params * tokens / h100("peak_flops") * 1e3
+
+
+def mfu(cfg, b: int, s: int, ms: float) -> float:
+    """``launch.roofline.model_flops`` of a train step of ``b`` × ``s``
+    tokens over ``ms`` at the bf16 peak."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.roofline import model_flops
+    return model_flops(cfg, ShapeSpec("train", s, b, "train")) / (
+        ms / 1e3 * h100("peak_flops"))
 
 
 def phase_train(torch, np, ops, dev, seed: int, load=None, root=None):
@@ -2556,6 +2584,17 @@ def phase_train(torch, np, ops, dev, seed: int, load=None, root=None):
     tokens = b * s
     bound = train_bound_ms(n_params, tokens)
     prof = train_profile(torch, lambda: step(state, batch), sync)
+    # Phase 22 (b): one more step under FlopCounterMode, the peak reset.
+    from torch.utils.flop_counter import FlopCounterMode
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        state, met = step(state, batch)
+    sync()
+    counted = {"flops": counter.get_total_flops(),
+               "peak_bytes": (torch.cuda.max_memory_allocated() - held
+                              if cuda else 0)}
     # The AdamW update alone, on the trained state (gradients of its
     # shape), beside its bytes: p, g, m, v read, p, m, v written.
     grads = {n: torch.randn_like(p) for n, p in
@@ -2565,12 +2604,14 @@ def phase_train(torch, np, ops, dev, seed: int, load=None, root=None):
     def adamw():
         adamw_update(opt, state["params"], grads, state["opt"])
     adamw_ms = cuda_ms(adamw) if cuda else float("nan")
-    adamw_bound = 28 * n_params / HBM_BYTES_PER_S * 1e3
+    adamw_bound = 28 * n_params / h100("hbm_bw") * 1e3
     out["full"] = {
         "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
         "tokens_a_step": tokens, "build_s": build_s,
         "step_ms": med, "step_ms_all": step_ms, "tokens_per_s":
         tokens / (med / 1e3), "bound_ms": bound, "bound_share": bound / med,
+        "mfu": mfu(cfg, b, s, med), "counted_step": counted,
+        "batch": b, "seq_len": s,
         "adamw_ms": adamw_ms, "adamw_bound_ms": adamw_bound,
         "peak_gb": peak / 1e9, "first_loss": losses[0],
         "last_loss": losses[-1], "filter_ms": statistics.median(filter_ms),
@@ -2580,7 +2621,8 @@ def phase_train(torch, np, ops, dev, seed: int, load=None, root=None):
         f"{n_params / 1e9:.3f} B parameters, built in {build_s:.2f} s), "
         f"bf16 remat=full, {b}x{s} tokens fed by TSAFilteredLM: step "
         f"{med:.3f} ms median of {timed} (bound {bound:.3f} ms: 8·N·T at "
-        f"989 TFLOP/s; {bound / med:.3f} of it), {tokens / (med / 1e3):.1f} "
+        f"989 TFLOP/s; {bound / med:.3f} of it; mfu "
+        f"{out['full']['mfu']:.4f}), {tokens / (med / 1e3):.1f} "
         f"tokens/s, AdamW {adamw_ms:.3f} ms (bound {adamw_bound:.3f} ms: "
         f"28 B a parameter at 3.35 TB/s), peak {peak / 1e9:.3f} GB, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; filter "
@@ -2658,11 +2700,13 @@ def phase_train(torch, np, ops, dev, seed: int, load=None, root=None):
             "params": sum(p.numel() for p in state["params"].parameters()),
             "step_ms": ms, "tokens_per_s": b * s / (ms / 1e3),
             "bound_ms": bound, "bound_share": bound / ms,
-            "peak_gb": peak / 1e9, "loss": loss}
+            "mfu": mfu(cfg, b, s, ms), "peak_gb": peak / 1e9, "loss": loss}
         log(f"phase 20: {name} ({cfg.family}, {cfg.n_layers}/{full.n_layers} "
             f"layers, cut for {cut}): one step "
             f"{ms:.3f} ms (bound {bound:.3f} ms: 8·N·T, N the "
-            f"{n_mm / 1e9:.3f} B active matmul parameters), "
+            f"{n_mm / 1e9:.3f} B active matmul parameters; "
+            f"{bound / ms:.3f} of it; mfu "
+            f"{out['others'][name]['mfu']:.4f}), "
             f"{b * s / (ms / 1e3):.1f} tokens/s, peak {peak / 1e9:.3f} GB, "
             f"loss {loss:.4f}")
         del state, step, batch, met
@@ -2986,10 +3030,12 @@ def phase_sharded_lm(torch, np, ops, dev, seed, root, load=None,
             "bitwise": bitwise, "differ": differ[:8], "worst_rel": worst,
             "step_ms": med, "step_ms_all": step_ms,
             "host_ms": statistics.median(host_ms), "host_ms_all": host_ms,
-            "peak_gb": peak / 1e9, "bound_ms": bound, "losses": losses}
+            "peak_gb": peak / 1e9, "bound_ms": bound, "bound_share":
+            bound / med, "mfu": mfu(cfg, b, s, med), "losses": losses}
         log(f"phase 21: llama3.2-1b sharded (1, 1) NCCL step, bf16 remat "
             f"full, {b}x{s} tokens from TSAFilteredLM: {med:.3f} ms median "
-            f"of {timed} (bound {bound:.3f} ms; {bound / med:.3f} of it), "
+            f"of {timed} (bound {bound:.3f} ms; {bound / med:.3f} of it; "
+            f"mfu {out['world1']['mfu']:.4f}), "
             f"host {statistics.median(host_ms):.3f} ms a step to enqueue, "
             f"peak {peak / 1e9:.3f} GB (after the unsharded state is freed),"
             f" losses {[round(x, 4) for x in losses]}")
@@ -3065,6 +3111,98 @@ def sharded_lm_gloo(np, dev, seed, root, reduced=False):
     return {"ranks": GLOO_WORLD, "spawn_s": spawn_s, "seconds": secs,
             "llama": r0["llama"], "phi3": r0["phi3"], "moe_err": r0["moe"],
             "pipeline_err": r0["pipeline_err"], "elastic": r0["elastic"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the dry run.
+# ---------------------------------------------------------------------------
+
+#: (b)'s measured peak against (a)'s predicted live bytes (relative).
+DRYRUN_MEM_RTOL = 0.2
+
+
+def dryrun_cmd(root, out_dir, *flags):
+    """``python -m repro_torch.launch.dryrun`` on ``flags`` (a process of
+    its own: a fake world is a process's default group), started."""
+    env = dict(os.environ, PYTHONPATH=str(pathlib.Path(root) / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+         str(out_dir), *flags], env=env, cwd=str(root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_record(proc, out_dir, name: str, timeout: float = 300):
+    """The record ``name`` of a finished dry run; raises if it failed."""
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 22: dry run failed ({proc.returncode})"
+                             f": {text[-3000:]}")
+    rec = json.loads((pathlib.Path(out_dir) / name).read_text())
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 22: {name}: {rec}")
+    return rec
+
+
+def phase_dryrun(root, train_out, device=None):
+    """Phase 22: the dry run (module docstring, item 22) against phase
+    20's measured step. ``device`` is the fake tensors' device type
+    (None: the CLI's default, CUDA). Returns {part: numbers}."""
+    t_phase = time.time()
+    full = train_out["full"]
+    b, s = full["batch"], full["seq_len"]
+    dev = ["--device", device] if device else []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        # (a) and (d) at once: both run on the host.
+        pred = dryrun_cmd(root, tmp, "--arch", "llama3.2-1b", "--shape",
+                          "train_4k", "--mesh", "1x1", "--global-batch",
+                          str(b), "--seq-len", str(s), "--attn-mode",
+                          "dense", "--remat", "full", *dev)
+        cli = dryrun_cmd(root, pathlib.Path(tmp) / "cli", "--arch",
+                         "llama3.2-1b", "--shape", "train_4k", "--acct",
+                         "extrapolated", *dev)
+        a = dryrun_record(pred, tmp, "1x1__llama3.2-1b__train_4k.json")
+        d = dryrun_record(cli, pathlib.Path(tmp) / "cli",
+                          "16x16__llama3.2-1b__train_4k.json")
+    live = a["memory_analysis_scanned"]["live_bytes"]
+    counted = full["counted_step"]
+    flops_a, flops_b = a["cost_analysis"]["flops"], counted["flops"]
+    peak = counted["peak_bytes"]
+    rel = abs(peak - live) / peak if peak else float("nan")
+    out = {"predicted": {"flops": flops_a, "live_bytes": live,
+                         "bytes_accessed": a["cost_analysis"][
+                             "bytes accessed"], "run_s": a["compile_s"]},
+           "measured": {"flops": flops_b, "peak_bytes": peak},
+           "peak_vs_live_rel": rel,
+           "mfu": full["mfu"], "bound_share": full["bound_share"],
+           "model_flops": a["roofline"]["model_flops"]}
+    log(f"phase 22 (a)-(b): llama3.2-1b {b}x{s}, 16 layers, bf16 remat full "
+        f"on a fake (1, 1) world: {flops_a:.6e} flops, "
+        f"{live / 1e9:.3f} GB live (counted in {a['compile_s']} s); the "
+        f"real step on the card under FlopCounterMode: {flops_b:.6e} flops, "
+        f"peak {peak / 1e9:.3f} GB ({rel:.3f} apart)")
+    log(f"phase 22 (c): mfu {full['mfu']:.4f} (model_flops "
+        f"{out['model_flops']:.4e} in {full['step_ms']:.3f} ms at 989 "
+        f"TFLOP/s) beside the 8·N·T bound's share {full['bound_share']:.4f}")
+    log("phase 22 (d): " + json.dumps(d))
+    out["cli"] = {"live_bytes": d["memory_analysis_scanned"]["live_bytes"],
+                  "fits": d["memory_analysis_scanned"]["fits_80gb_hbm"],
+                  "dominant": d["roofline"]["dominant"],
+                  "useful": d["roofline"]["useful_flops_ratio"],
+                  "run_s": d["compile_s"]}
+    if flops_a != flops_b:
+        raise AssertionError(f"phase 22: predicted flops {flops_a} != "
+                             f"counted {flops_b}")
+    if not rel <= DRYRUN_MEM_RTOL:
+        raise AssertionError(f"phase 22: peak {peak} vs predicted live "
+                             f"{live}: {rel:.3f} apart")
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 22: total {out['seconds']:.1f} s")
+    return out
 
 
 def ptxas_summary(log_text: str):
@@ -3517,6 +3655,10 @@ def main() -> int:
         torch, np, ops, dev, args.seed, pathlib.Path(__file__).resolve()
         .parent)
     path_by.update(shard_paths)
+
+    # Phase 22: the dry run against phase 20's step.
+    dry_out = phase_dryrun(pathlib.Path(__file__).resolve().parent,
+                           train_out)
     path_by = {"matsa_human": human_launches, "topk_fold_human":
                topk_launches, "sdtw_spans_ecg": ecg_launches,
                "long_queries": long_launches, **path_by}
@@ -3532,7 +3674,7 @@ def main() -> int:
                 + (b_ * 8 if banned else 0))               # the bans
         ops_ = ((b_ * m_ - banned) * n_
                 * OPS_PER_CELL["span" if track else "plain"])
-        t_bytes, t_ops = byts / HBM_BYTES_PER_S, ops_ / int32_rate
+        t_bytes, t_ops = byts / h100("hbm_bw"), ops_ / int32_rate
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes > t_ops else "operations")
 
@@ -3570,6 +3712,7 @@ def main() -> int:
     log("lm serving (phase 19): " + json.dumps(lm_out))
     log("lm training (phase 20): " + json.dumps(train_out))
     log("sharded lm (phase 21): " + json.dumps(shard_out))
+    log("dry run (phase 22): " + json.dumps(dry_out))
     rows = []
     src = {"rows": "src/repro_torch/kernels/sdtw/csrc/sdtw_rows.cu",
            "chain": "src/repro_torch/kernels/sdtw/csrc/sdtw_chain.cu",

@@ -481,8 +481,16 @@ def replicated(t, like):
 
 def full(x):
     """The whole tensor of a DTensor (a collective), a plain tensor as it
-    is."""
-    return x.full_tensor() if isinstance(x, DTensor) else x
+    is. fp8 parts travel as their bytes (gloo gathers no fp8)."""
+    if not isinstance(x, DTensor):
+        return x
+    if x.element_size() == 1 and x.dtype.is_floating_point:
+        raw = DTensor.from_local(x.to_local().view(torch.uint8),
+                                 x.device_mesh, x.placements,
+                                 run_check=False, shape=x.shape,
+                                 stride=x.stride())
+        return raw.full_tensor().view(x.dtype)
+    return x.full_tensor()
 
 
 def unshard(x, dim: int):
@@ -525,6 +533,30 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+class _GradPlacedAs(torch.autograd.Function):
+    """Identity on a DTensor whose backward places the gradient as the
+    DTensor is placed."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and g.placements != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_placed_as(x):
+    """``x``, whose gradient is redistributed on its way back to ``x``'s
+    own placements (a plain tensor as it is): where DTensor's backward
+    would otherwise meet the gradient in a placement that the next op's
+    rule cannot take, or plan around it with a gather."""
+    return _GradPlacedAs.apply(x) if isinstance(x, DTensor) else x
+
+
 def local_part(x, grad_placements=None):
     """``x.to_local(grad_placements)`` for code that computes on local
     parts under autograd. The local gradient is made contiguous on its way
@@ -550,6 +582,63 @@ def pad(x, pads):
     return DTensor.from_local(out, x.device_mesh, x.placements,
                               run_check=False, shape=tuple(shape),
                               stride=contiguous_strides(shape))
+
+
+def local_ranges(x) -> tuple:
+    """``(start, stop)`` of this rank's part of each dim of ``x`` (whole
+    dims for a plain tensor and for replicated dims)."""
+    if not isinstance(x, DTensor):
+        return tuple((0, n) for n in x.shape)
+    return _ranges(x.shape, x.device_mesh, x.placements)
+
+
+def _ranges(shape, dm, placements) -> tuple:
+    """This rank's ``(start, stop)`` of each dim of a tensor of ``shape``
+    placed by ``placements`` on ``dm``, as ``torch.chunk`` splits (mesh
+    dims outer to inner)."""
+    ranges = [(0, int(n)) for n in shape]
+    coord = dm.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            d = p.dim % len(shape)
+            lo, hi = ranges[d]
+            size = -(-(hi - lo) // dm.size(i))
+            start = min(lo + coord[i] * size, hi)
+            ranges[d] = (start, min(start + size, hi))
+    return tuple(ranges)
+
+
+def sharded_zeros(shape, dtype, device, sharding):
+    """A zero DTensor of global ``shape`` placed by ``sharding`` (a
+    ``(DeviceMesh, placements)`` pair; a plain zero tensor for None),
+    each rank making its own part only."""
+    if sharding is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    dm, pl = sharding
+    part = torch.zeros([hi - lo for lo, hi in _ranges(shape, dm, pl)],
+                       dtype=dtype, device=device)
+    return DTensor.from_local(part, dm, pl, run_check=False,
+                              shape=tuple(shape),
+                              stride=contiguous_strides(shape))
+
+
+def write_block(dst, src):
+    """``dst.copy_(src)`` for a ``src`` every rank holds whole (a plain
+    tensor): a DTensor ``dst`` takes this rank's block of it, no
+    message."""
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    idx = tuple(slice(lo, hi) for lo, hi in local_ranges(dst))
+    dst.to_local().copy_(src[idx])
+
+
+def all_reduce(t, op: str, dm, mesh_dim: int):
+    """``t`` reduced (``"sum"`` or ``"max"``) over one dim of the
+    DeviceMesh ``dm``: a plain tensor, the same on that dim's ranks."""
+    from torch.distributed import _functional_collectives as funcol
+    out = funcol.all_reduce(t, op, (dm, mesh_dim))
+    return out.wait() if hasattr(out, "wait") else out
 
 
 def contiguous_strides(shape) -> tuple:

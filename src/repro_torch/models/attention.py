@@ -27,10 +27,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..distributed.sharding import (contiguous_strides, full, local_part,
-                                    pad, replicated, shards, unshard)
+from ..distributed.sharding import (all_reduce, contiguous_strides, full,
+                                    grad_placed_as, local, local_part,
+                                    local_ranges, pad, replicated, shards,
+                                    unshard)
 from .layers import Init, apply_rope
 
 NEG_INF = -1e30
@@ -207,7 +209,9 @@ def _per_block(core, q, k, v, axes):
                         and axes.tp_if_divisible(k.shape[2])) else None
     dims = ("dp", None, heads, None)
     q, k, v = (axes.constrain(t, *dims) for t in (q, k, v))
-    out = core(*(local_part(t) for t in (q, k, v)))
+    # contiguous, as the strides declared below say (a later reshape of a
+    # part split over the heads would otherwise fail to view)
+    out = core(*(local_part(t) for t in (q, k, v))).contiguous()
     return DTensor.from_local(out, q.device_mesh, q.placements,
                               run_check=False, shape=q.shape,
                               stride=contiguous_strides(q.shape))
@@ -248,7 +252,10 @@ def attention(params, cfg, x, positions, mode: str = "dense",
     if axes is not None:
         out = axes.constrain(out, "dp", None,
                              axes.tp_if_divisible(cfg.n_heads), None)
-    return out.reshape(*x.shape[:2], -1) @ params.wo, kv_for_cache
+    # the gradient comes back from ``wo`` split over head_dim·heads; a
+    # head count the model axis does not divide cannot be split off it
+    out = grad_placed_as(out.reshape(*x.shape[:2], -1))
+    return out @ params.wo, kv_for_cache
 
 
 def decode_attention(params, cfg, x, cache_k, cache_v, pos, axes=None):
@@ -261,6 +268,9 @@ def decode_attention(params, cfg, x, cache_k, cache_v, pos, axes=None):
     b = x.shape[0]
     scale = 1.0 / np.sqrt(cfg.resolved_head_dim)
     q, k, v = _project_qkv(params, cfg, x, pos[:, None], axes)
+    if isinstance(cache_k, DTensor):
+        out = _decode_sharded(q, k, v, cache_k, cache_v, pos, scale)
+        return out.reshape(b, 1, -1) @ params.wo
     idx = (torch.arange(b, device=x.device), pos.long())
     cache_k.index_put_(idx, full(k)[:, 0].to(cache_k.dtype))
     cache_v.index_put_(idx, full(v)[:, 0].to(cache_v.dtype))
@@ -270,3 +280,56 @@ def decode_attention(params, cfg, x, cache_k, cache_v, pos, axes=None):
     scores = torch.where(mask[:, None, None, None, :], scores, NEG_INF)
     out = _gqa_values(torch.softmax(scores, dim=-1), cache_v.to(q.dtype))
     return out.reshape(b, 1, -1) @ params.wo
+
+
+def _decode_sharded(q, k, v, cache_k, cache_v, pos, scale):
+    """``decode_attention`` on a cache sharded as ``launch.specs
+    .cache_spec_tree`` places it (DTensors (B, S_max, Hkv, Dh) split over
+    batch, sequence, kv heads or head_dim): each rank writes the new K/V
+    into its own block and attends over it. A head_dim split sums the
+    scores over its ranks; a sequence split combines the softmax
+    statistics and the values across its ranks (flash-decode). Returns
+    the whole (B, 1, H, Dh) output on every rank."""
+    dm = cache_k.device_mesh
+    split = {}
+    for i, p in enumerate(cache_k.placements):
+        if isinstance(p, Shard):
+            if p.dim in split:
+                raise ValueError(f"cache dim {p.dim} split over two mesh "
+                                 f"dims: {cache_k.placements}")
+            split[p.dim] = i
+    (b0, b1), (s0, s1), (h0, h1), (d0, d1) = local_ranges(cache_k)
+    g = q.shape[2] // cache_k.shape[2]
+    ck, cv = local(cache_k), local(cache_v)
+    posl = full(pos)[b0:b1].long()
+    rows = torch.arange(b1 - b0, device=ck.device)
+    at = torch.clamp(posl - s0, 0, s1 - s0 - 1)
+    mine = ((posl >= s0) & (posl < s1))[:, None, None]
+    for c, new in ((ck, k), (cv, v)):
+        blk = full(new)[b0:b1, 0, h0:h1, d0:d1].to(c.dtype)
+        c.index_put_((rows, at), torch.where(mine, blk, c[rows, at]))
+    ql = full(q)[b0:b1, :, h0 * g:h1 * g, d0:d1]
+    scores = _gqa_scores(ql, ck.to(ql.dtype), scale)   # (b,hkv,g,1,s)
+    if 3 in split:
+        scores = all_reduce(scores, "sum", dm, split[3])
+    kpos = s0 + torch.arange(s1 - s0, device=ck.device)
+    mask = kpos[None, :] <= posl[:, None]
+    scores = torch.where(mask[:, None, None, None, :], scores, NEG_INF)
+    if 1 in split:
+        m = all_reduce(scores.amax(dim=-1, keepdim=True), "max", dm,
+                       split[1])
+        e = torch.exp(scores - m)
+        probs = e / all_reduce(e.sum(dim=-1, keepdim=True), "sum", dm,
+                               split[1])
+        out = _gqa_values(probs, cv.to(ql.dtype))
+        out = all_reduce(out.float(), "sum", dm, split[1]).to(ql.dtype)
+    else:
+        out = _gqa_values(torch.softmax(scores, dim=-1), cv.to(ql.dtype))
+    shape = (q.shape[0], 1, q.shape[2], q.shape[3])
+    pl = [Replicate()] * dm.ndim
+    for dim in (0, 2, 3):
+        if dim in split:
+            pl[split[dim]] = Shard(dim)
+    return DTensor.from_local(out.contiguous(), dm, pl, run_check=False,
+                              shape=shape,
+                              stride=contiguous_strides(shape)).full_tensor()

@@ -14,10 +14,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..distributed.sharding import (contiguous_strides, local_part,
-                                    partial_over, replicated, unshard)
+from ..distributed.sharding import (contiguous_strides, grad_placed_as,
+                                    local_part, local_ranges, partial_over,
+                                    replicated, unshard)
 
 
 class Init:
@@ -153,7 +154,15 @@ def _embed_sharded(table, tokens):
 def unembed(params, x, axes=None):
     """Logits in fp32 from the (compute-dtype-rounded) table (vocab-sharded
     over TP)."""
-    logits = x.float() @ params.table.float().T
+    table = params.table
+    if axes is not None:
+        # x whole over the model axis and the table's d_model split over
+        # the data axes gathered (ZeRO-3): else DTensor gathers the batch
+        # of x or the vocab of the table instead, and a rank computes the
+        # logits of every token or of the whole vocab
+        x = axes.constrain(x, "dp", None, None)
+        table = axes.constrain(table, "tp", None)
+    logits = x.float() @ table.float().T
     if axes is not None:
         logits = axes.constrain(logits, "dp", None, "tp")
     return logits
@@ -162,14 +171,43 @@ def unembed(params, x, axes=None):
 def cross_entropy_loss(logits, labels, mask=None):
     """Token-mean cross entropy; logits fp32 (B, S, V), labels (B, S).
 
-    Vocab-sharded DTensor logits are gathered whole first: DTensor has no
-    rule for the label gather on a sharded dim."""
-    last = logits.ndim - 1                 # DTensor on torch 2.11 wants
-    logits = unshard(logits, last)          # non-negative dims
-    logz = torch.logsumexp(logits, dim=last)
-    gold = torch.gather(logits, last, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    DTensor logits over several ranks stay as they are placed (a
+    vocab-parallel cross entropy where the vocab is split): the
+    log-partition and the gold logit are sums over the vocab that DTensor
+    reduces across its shards, and the gold logit is picked by comparing
+    each rank's vocab ids with the labels (DTensor has no rule for the
+    label gather on a split dim, and the gather's backward makes zeros of
+    the whole global logits on every rank)."""
+    last = logits.ndim - 1      # (DTensor on torch 2.11 wants dims >= 0)
+    if isinstance(logits, DTensor) and logits.device_mesh.size() > 1:
+        m = logits.detach().amax(dim=last, keepdim=True)
+        logz = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=last))
+        gold = torch.where(labels[..., None].long() == _vocab_ids(logits),
+                           logits, 0.0).sum(dim=last)
+        # the loss's gradient reaches nll placed as nll is (else DTensor
+        # meets a replicated gradient with the sharded logits by
+        # gathering the logits' batch)
+        nll = grad_placed_as(logz - gold)
+    else:
+        logits = unshard(logits, last)
+        logz = torch.logsumexp(logits, dim=last)
+        gold = torch.gather(logits, last, labels[..., None].long())[..., 0]
+        nll = logz - gold
     if mask is None:
         return nll.mean()
     mask = mask.float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _vocab_ids(logits):
+    """The vocab ids (V,) as a DTensor split as the last dim of the
+    DTensor ``logits`` is (each rank making its own part)."""
+    last = logits.ndim - 1
+    dm = logits.device_mesh
+    lo, hi = local_ranges(logits)[last]
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim % logits.ndim == last
+          else Replicate() for p in logits.placements]
+    n = logits.shape[last]
+    return DTensor.from_local(
+        torch.arange(lo, hi, device=logits.device), dm, pl,
+        run_check=False, shape=(n,), stride=(1,))

@@ -24,8 +24,10 @@ so that positional calls keep working). Under a mesh the parameters are
 DTensors (``launch.specs.tree_shardings``), the batch is placed over the
 data-parallel axes, each ``constrain`` sits where the reference's sits,
 and the constants that meet sharded activations are replicated DTensors;
-serving runs in ``axes.context()`` and keeps its cache a plain tensor
-that every rank holds whole.
+serving runs in ``axes.context()``. Its cache is a plain tensor that
+every rank holds whole, or, where the caller places it (``prefill``'s
+``cache=``; ``launch.specs.cache_spec_tree``), DTensors that each rank
+writes and reads its own block of (``attention.decode_attention``).
 
 Rematerialisation (``RunConfig.remat``) wraps the reference's bodies: a
 dense or MoE block, a hybrid group (the shared block and its SSM layers),
@@ -49,10 +51,12 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils import checkpoint as ckpt_mod
 
 from ..device import as_tensor, resolve_device
-from ..distributed.sharding import context, full
+from ..distributed.sharding import (context, full, local_ranges,
+                                    write_block)
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -370,34 +374,56 @@ def init_cache(cfg, batch: int, max_len: int, run: RunConfig = DEFAULT_RUN,
 
 @torch.no_grad()
 def prefill(cfg, params: LM, batch, max_len: int,
-            run: RunConfig = DEFAULT_RUN, axes=None):
+            run: RunConfig = DEFAULT_RUN, axes=None, cache=None):
     """Process a full prompt → (last-token logits (B,V), cache).
 
     Makes the compute-dtype copy of the weights that the decode steps
-    after it reuse."""
+    after it reuse. ``cache`` is an empty cache of ``init_cache``'s
+    layout to fill (under a mesh its entries may be DTensors, placed as
+    ``launch.specs.cache_spec_tree`` says: each rank fills its block);
+    None makes one that every rank holds whole."""
     with context(axes):
         p = params.compute_params(run.compute_dtype, refresh=True)
         x = _embed_inputs(p, batch, run, axes)
         b, s, _ = x.shape
-        cache = init_cache(cfg, b, max_len, run, x.device)
+        if cache is None:
+            cache = init_cache(cfg, b, max_len, run, x.device)
         ssm_state = kv_out = None
         if cfg.has_ssm:
             def ssm_state(l, st=None):
                 if st is None:
-                    return {k: a[l] for k, a in cache["ssm"].items()}
+                    return {k: full(a[l]) for k, a in cache["ssm"].items()}
                 for k, a in cache["ssm"].items():
-                    a[l].copy_(full(st[k]))
+                    write_block(a[l], full(st[k]))
         if cfg.family != "ssm":
             ks, vs = ((cache["shared_k"], cache["shared_v"])
                       if cfg.family == "hybrid" else (cache["k"], cache["v"]))
 
             def kv_out(i, k, v):
-                ks[i, :, :s] = full(k)
-                vs[i, :, :s] = full(v)
+                _write_prefix(ks[i], k)
+                _write_prefix(vs[i], v)
         x, _ = _layers(cfg, run, p, x, _positions(b, s, x.device), ssm_state,
                        kv_out, axes)
         cache["pos"].fill_(s)
         return full(_logits(p, cfg, x[:, -1:], axes))[:, 0], cache
+
+
+def _write_prefix(dst, src):
+    """``dst[:, :s] = src`` for a prompt's K/V ``src`` (B, s, Hkv, Dh),
+    cast to the cache's dtype. A DTensor ``dst`` (whose ``src`` is a
+    DTensor on its mesh) takes this rank's block: ``src`` is placed as
+    ``dst`` is on every dim but the sequence, and the rank writes the
+    part of ``[0, s)`` its sequence range holds."""
+    s = src.shape[1]
+    if not isinstance(dst, DTensor):
+        dst[:, :s] = full(src)
+        return
+    pl = tuple(Replicate() if isinstance(q, Shard) and q.dim % dst.ndim == 1
+               else q for q in dst.placements)
+    part = src.redistribute(dst.device_mesh, pl).to_local()
+    lo, hi = local_ranges(dst)[1]
+    if min(hi, s) > lo:
+        dst.to_local()[:, :min(hi, s) - lo] = part[:, lo:min(hi, s)]
 
 
 @torch.no_grad()
@@ -423,10 +449,11 @@ def _decode_step(cfg, params, tokens, cache, run, axes):
         bp = p.blocks[l]
         st = {k: a[l] for k, a in cache["ssm"].items()}
         h, st2 = ssm_mod.ssm_decode_step(bp.ssm, cfg,
-                                         rms_norm(x, bp.ln, cfg.norm_eps), st,
+                                         rms_norm(x, bp.ln, cfg.norm_eps),
+                                         {k: full(a) for k, a in st.items()},
                                          axes)
         for k, a in st.items():
-            a.copy_(full(st2[k]))
+            write_block(a, full(st2[k]))
         return x + h
 
     def attn_at(x, ap, ln, l, ks, vs):

@@ -19,7 +19,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Shard
 
+from ..distributed.sharding import contiguous_strides, local_part
 from ..distributed.sharding import pad as pad_
 from ..distributed.sharding import replicated
 from .layers import Init, rms_norm
@@ -130,6 +132,39 @@ def _ssd_chunked(cfg, xh, dt, a, b, c):
     return y, hcur
 
 
+def _ssd_per_block(cfg, xh, dt, a, b, c, axes):
+    """``_ssd_chunked`` on each rank's block of batch and heads. The scan
+    is independent across both, so under a mesh each rank runs it on its
+    rows (over the data axes) and heads (over the model axis when it
+    divides them); ``b`` and ``c``, shared by the heads, are whole over
+    the model axis, and a rank's gradient for them is its heads' share
+    of the sum. DTensor's own rules for the scan's products (on torch
+    2.11) cannot flatten the split heads into their batch dims."""
+    if not isinstance(xh, DTensor):
+        return _ssd_chunked(cfg, xh, dt, a, b, c)
+    th = axes.tp_if_divisible(cfg.n_ssm_heads)
+    xh = axes.constrain(xh, "dp", None, th, None)
+    dt, a = (axes.constrain(t, "dp", None, th) for t in (dt, a))
+    b, c = (axes.constrain(t, "dp", None, None) for t in (b, c))
+    model = (axes.mesh.dtensor_dims.index(axes.tp)
+             if th is not None else None)
+    shared = tuple(Partial() if i == model else q
+                   for i, q in enumerate(b.placements))
+    y, hfin = _ssd_chunked(
+        cfg, *(local_part(t) for t in (xh, dt, a)),
+        *(local_part(t, shared) for t in (b, c)))
+    dm = xh.device_mesh
+    hpl = tuple(Shard(1) if isinstance(q, Shard) and q.dim == 2 else q
+                for q in xh.placements)
+    hshape = (xh.shape[0], xh.shape[2], xh.shape[3], b.shape[-1])
+    return (DTensor.from_local(y.contiguous(), dm, xh.placements,
+                               run_check=False, shape=xh.shape,
+                               stride=contiguous_strides(xh.shape)),
+            DTensor.from_local(hfin.contiguous(), dm, hpl, run_check=False,
+                               shape=hshape,
+                               stride=contiguous_strides(hshape)))
+
+
 def ssm_forward(params, cfg, x, state=None, axes=None):
     """Full-sequence SSD layer. x: (B,S,d) → (B,S,d).
 
@@ -148,11 +183,16 @@ def ssm_forward(params, cfg, x, state=None, axes=None):
         tdi = axes.tp_if_divisible(cfg.d_inner)
         xs = axes.constrain(xs, "dp", None, tdi)
         z = axes.constrain(z, "dp", None, tdi)
+        # split over the heads as dt_bias is (in_proj splits d_model over
+        # the model axis, so dt comes out a sum over it, which DTensor on
+        # torch 2.11 cannot meet a split dt_bias with)
+        dt = axes.constrain(dt, "dp", None,
+                            axes.tp_if_divisible(cfg.n_ssm_heads))
 
     dtf = F.softplus(dt.float() + params.dt_bias.float())
     a = -torch.exp(params.A_log.float()) * dtf                   # (B,S,H)
     xh = xs.reshape(bs, s, h, p)
-    y, hfin = _ssd_chunked(cfg, xh, dtf, a, b.float(), c.float())
+    y, hfin = _ssd_per_block(cfg, xh, dtf, a, b.float(), c.float(), axes)
     y = y + params.D.float()[None, None, :, None] * xh.float()
     y = y.reshape(bs, s, h * p).to(x.dtype)
     y = rms_norm(y * F.silu(z), params.norm_w, cfg.norm_eps)
@@ -165,13 +205,17 @@ def ssm_forward(params, cfg, x, state=None, axes=None):
 
 def ssm_decode_step(params, cfg, x, state, axes=None):
     """Single-token recurrence. x: (B,1,d); state: {h (B,H,P,N) fp32,
-    conv (B, W-1, d_inner+2N)} → (out (B,1,d), new_state). ``axes`` is
-    accepted and unused, as in the reference."""
+    conv (B, W-1, d_inner+2N)} → (out (B,1,d), new_state). Under a mesh
+    (``axes``) dt is split over the heads as dt_bias is
+    (``ssm_forward``)."""
     bs = x.shape[0]
     h, p, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     di = cfg.d_inner
     proj = x @ params.in_proj
     z, xs, b, c, dt = _split_proj(cfg, proj)
+    if axes is not None:
+        dt = axes.constrain(dt, "dp", None,
+                            axes.tp_if_divisible(cfg.n_ssm_heads))
 
     conv_state = state["conv"]                      # (B, W-1, di+2n)
     xs, sx = _causal_conv(xs, params.conv_x, conv_state[..., :di])

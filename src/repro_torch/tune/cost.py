@@ -35,6 +35,7 @@ from typing import Optional
 
 from repro_torch.core.platforms import (BackendModel, CudaBackendModel,
                                         backend_model)
+from repro_torch.launch.roofline import kernel_roofline
 
 #: Launch variants a CUDA tuning decision is keyed on: K1 (distance and
 #: end), K2 (the start lane) and K3 (the last-row capture).
@@ -85,18 +86,6 @@ def bucket_key(backend: str, metric: str, dtype: str, nq: int, n: int,
     key = (f"{backend}/{metric}/{dtype}/b{_pow2_bucket(max(1, nq))}"
            f"/n{_pow2_bucket(max(1, n))}/m{_pow2_bucket(max(1, m))}")
     return key if variant is None else f"{key}/{variant}"
-
-
-def kernel_roofline(cells: float, hbm_bytes: float, *, cells_per_s: float,
-                    hbm_bw: float):
-    """Two-term roofline bound (a copy of ``repro.launch.roofline
-    .kernel_roofline``): ``cells`` units of work at ``cells_per_s``
-    against ``hbm_bytes`` at ``hbm_bw``. Returns ``(bound_time_s,
-    dominant)``, dominant ``'compute'`` or ``'memory'``."""
-    compute_s = cells / cells_per_s if cells_per_s else 0.0
-    memory_s = hbm_bytes / hbm_bw if hbm_bw else 0.0
-    return (max(compute_s, memory_s),
-            "compute" if compute_s >= memory_s else "memory")
 
 
 def launch_label(cfg: dict) -> str:
