@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import as_tensor, resolve_device
 from . import engine
 from .sdtw import self_join_exclusion, self_join_windows
@@ -28,6 +29,7 @@ class MatsaResult:
     profile: Optional[object] = None              # self_join only
 
 
+@obs.spanned("matsa")
 def matsa(reference, queries=None, query_sizes=None, *,
           mode: str = "query_filtering", dist_metric: str = "abs_diff",
           anomaly_threshold=None, window: int = None, stride: int = 1,
@@ -48,7 +50,8 @@ def matsa(reference, queries=None, query_sizes=None, *,
     kernel, with the exclusion zones as its per-query column ban. With a
     ``mesh`` the call is SPMD: every rank of the mesh makes it with the
     same arguments and gets the whole result.
-    ``device`` is where it runs (``None``: the CUDA device).
+    ``device`` is where it runs (``None``: the CUDA device). Each call
+    runs under the span ``repro_torch.matsa`` (``repro_torch.obs``).
 
     Self-join with ``exclusion=True``, ``impl='auto'`` and no ``mesh``
     routes through ``repro_torch.search.profile.matrix_profile`` (exact,

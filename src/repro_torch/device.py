@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` → the CUDA device; anything else is passed to
@@ -24,8 +26,26 @@ def resolve_device(device=None) -> torch.device:
 
 def as_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
     """A tensor on ``device`` from a tensor, numpy array or Python value
-    (numpy dtypes are kept; ``dtype`` converts)."""
+    (numpy dtypes are kept; ``dtype`` converts). A move from the host or
+    another device runs under the span ``repro_torch.stage``."""
+    if obs.recording() and _moves(x, device):
+        with obs.span("stage"):
+            return torch.as_tensor(x).to(device=device, dtype=dtype)
     return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+
+def _moves(x, device) -> bool:
+    """Whether ``as_tensor(x, device)`` brings ``x`` from the host or
+    another device (a tensor already on ``device`` stays where it is)."""
+    if not isinstance(x, torch.Tensor):
+        return True
+    device = torch.device(device)
+    if x.device.type != device.type:
+        return True
+    index = device.index
+    if index is None and device.type == "cuda":
+        index = torch.cuda.current_device()
+    return index is not None and x.device.index != index
 
 
 def to_numpy(x) -> np.ndarray:

@@ -45,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.distances import (INT_FAR, METRICS, accum_dtype, big,
                                         result_dtype)
 from repro_torch.device import as_tensor, resolve_device
@@ -497,6 +498,7 @@ def _launch_cuda(q, r, qlens, metric, bcol, best, pos, bstart, start,
     return outs
 
 
+@obs.spanned("sdtw")
 def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
               block_q: int | None = None, block_m: int | None = None,
               carry=None, return_carry: bool = False, ref_offset=0,
@@ -537,6 +539,9 @@ def sdtw_cuda(queries, reference, qlens=None, metric: str = "abs_diff",
     ``(dists, starts, ends)`` with ``return_spans``; then the new carry
     with ``return_carry``; then the (B, M) last row (BIG where masked),
     and in span mode its start lane, with ``return_lastrow``.
+
+    Each call runs under the span ``repro_torch.sdtw``
+    (``repro_torch.obs``).
     """
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; expected one of "

@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.distances import accum_dtype, big
 from repro_torch.core.sdtw import self_join_exclusion
 from repro_torch.core.topk import discord_select, mutual_nearest_pairs
@@ -177,7 +178,8 @@ def matrix_profile(series, window: int, stride: int = 1, k: int = 1, *,
     per ``search_topk`` call, the memory knob); ``cache``/``ref_key``
     (envelope reuse across calls); ``engine_impl`` ('auto' is the kernel
     with its column ban on the card, the row scan on the CPU). ``device``
-    is where the DP runs (``None``: the CUDA device).
+    is where the DP runs (``None``: the CUDA device). Each batch runs
+    under the span ``repro_torch.profile.batch`` (``repro_torch.obs``).
 
     Returns a ``ProfileResult`` (numpy arrays).
     """
@@ -216,20 +218,21 @@ def matrix_profile(series, window: int, stride: int = 1, k: int = 1, *,
     stats = [0, 0, 0, 0]
     col = np.arange(window, dtype=np.int64)
     for b0 in range(0, nw, batch):
-        sl = slice(b0, min(b0 + batch, nw))
-        s_b = starts[sl]
-        windows_b = series[s_b[:, None] + col[None, :]]
-        lo_b, hi_b = self_join_exclusion(s_b, window, zone)
-        res = search_topk(
-            windows_b, ref, 1, metric=metric, chunk=c, prune=prune,
-            span_cap=span_cap, excl_lo=lo_b, excl_hi=hi_b, cache=cache,
-            ref_key=ref_key, engine_impl=engine_impl, device=dev)
-        nn_dist[sl] = to_numpy(res.distances)[:, 0]
-        nn_end[sl] = to_numpy(res.positions)[:, 0]
-        nn_start[sl] = to_numpy(res.starts)[:, 0]
-        stats[0] += res.chunks_total
-        stats[1] += res.chunks_pruned_kim
-        stats[2] += res.chunks_pruned_keogh
-        stats[3] += res.chunks_processed
+        with obs.span("profile.batch"):
+            sl = slice(b0, min(b0 + batch, nw))
+            s_b = starts[sl]
+            windows_b = series[s_b[:, None] + col[None, :]]
+            lo_b, hi_b = self_join_exclusion(s_b, window, zone)
+            res = search_topk(
+                windows_b, ref, 1, metric=metric, chunk=c, prune=prune,
+                span_cap=span_cap, excl_lo=lo_b, excl_hi=hi_b, cache=cache,
+                ref_key=ref_key, engine_impl=engine_impl, device=dev)
+            nn_dist[sl] = to_numpy(res.distances)[:, 0]
+            nn_end[sl] = to_numpy(res.positions)[:, 0]
+            nn_start[sl] = to_numpy(res.starts)[:, 0]
+            stats[0] += res.chunks_total
+            stats[1] += res.chunks_pruned_kim
+            stats[2] += res.chunks_pruned_keogh
+            stats[3] += res.chunks_processed
     return _assemble_profile(window, stride, k, starts, nn_dist, nn_start,
                              nn_end, zone, c, stats)
