@@ -62,13 +62,14 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
  11. alignment (``engine.align``) of 64 Human and 4 ECG-cut queries: every
      path valid and replaying its distance bitwise;
  12. the self-join at ECG's length: ``matsa(mode="self_join")`` with
-     window and stride 512 (3,515 windows, the exact profile in batches
-     of 256, every launch the chain kernel's K3 with the ban); its first
-     batch (256 windows, 4 slices of 8,192 through the carry) held
-     against the plain version slice by slice; 8 windows through the
-     direct route (K1 and K2 with their bans) and their last rows held
-     bitwise against the plain version over the whole series;
-     the profile again in one batch of 4,096 (the rows kernel), bitwise;
+     window and stride 512 (3,515 windows, the exact profile in one
+     batch, every launch the rows kernel's K3 with the ban); the profile
+     again in batches of 256 (the chain kernel's K3 with the ban), timed,
+     bitwise; the path's batch (2 slices of 8,192 through the carry) and
+     the first 256 windows (4 slices) held against the plain version
+     slice by slice; 8 windows
+     through the direct route (K1 and K2 with their bans) and their last
+     rows held bitwise against the plain version over the whole series;
      the direct route of every window of 120 of Human's reference
      (7,878 windows: the rows kernel's K1 and K2 bans); self-joins of
      1,600-sample windows on 100,000 samples (the chain kernel's bans)
@@ -81,9 +82,11 @@ JAX and nothing of the JAX package ``repro``. Phases, each of which raises
      ``matrix_profile(prune=False)`` of the same prefix;
  15. long windows and queries at ECG's length on the chain kernel:
      ``matsa(mode="self_join", window=2048, stride=2048)`` (878 windows,
-     the exact profile in batches of 256, every launch the chain kernel's
-     K3 with the ban), its first batch through all 220 slices held
-     bitwise against the wavefront kernel, 4 windows against the plain
+     the exact profile in one batch, every launch the chain kernel's K3
+     with the ban), the profile again in batches of 256, timed, bitwise;
+     the first batch of 256 through all 220 slices held bitwise against
+     the wavefront kernel, the path's batch over 2 slices and 4 windows
+     against the plain
      version over the whole series, motifs and discords against the
      distances; ``engine.sdtw(return_spans=True)`` of 64 queries of
      4,096 against the whole series on the chain kernel and on the
@@ -181,9 +184,9 @@ keeps the hand-set launch at every shape checked below): the rows kernel for
 Human's 131,072 queries and every batch of at least 12 queries an SM
 (phases 4, 5, 9, 11, 12), the chain kernel for smaller batches of
 longer queries (ECG-cut's 256 in phases 6 and 9-11, the self-join's
-batches of 256 windows in 12-14) and past N = 1,536 (phases 7, 12, 15),
-the wavefront past 8,192 (phases 7, 12); each path reads the launch
-counts set to 0 just before it
+batches of 256 windows in 12-14 and of 878 in 15) and past N = 1,536
+(phases 7, 12, 15), the wavefront past 8,192 (phases 7, 12); each path
+reads the launch counts set to 0 just before it
 (``launches_by_path`` in the JSON line; ``launches`` sums them), and the
 script fails if a kernel variant was launched on no path.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -973,21 +976,49 @@ def _only(ops, key, name):
     return got
 
 
+def _batch_vs_plain(torch, np, ops, h, st, starts, w, c, nsl, key, name):
+    """The windows at ``starts`` as one batch of ``_kernel_topk_scan``
+    launches it: with their bans, slices of ``c`` columns through the
+    carry, the kernel ``"auto"`` picks for the batch (``key``, every
+    launch) held against the plain version slice by slice (each on its
+    own carry) over the first ``nsl`` slices. Returns the seconds."""
+    from repro_torch.core.sdtw import self_join_exclusion
+    qb = st[torch.as_tensor(starts[:, None] + np.arange(w), device=st.device)]
+    lob, hib = (x.to(st.device) for x in self_join_exclusion(starts, w))
+    kc = pc = None
+    ops.reset_launches()
+    t0 = time.time()
+    for off in range(0, nsl * c, c):
+        kw_ = dict(track=True, lastrow=True, ref_offset=off, ref_len=c,
+                   excl_lo=lob, excl_hi=hib)
+        got = h.kernel(qb, st[off:off + c], carry=kc, **kw_)
+        ref = h.plain_raw(qb, st[off:off + c], carry=pc, **kw_)
+        h.record(key, h.compare(f"{name}, slice at {off}", got, ref))
+        kc = (got[3], got[4], got[0], got[1], got[2])
+        pc = (ref[3], ref[4], ref[0], ref[1], ref[2])
+    if _only(ops, key, name)[key] != nsl:
+        raise AssertionError(f"{name}: {nsl} launches of {key} expected")
+    return time.time() - t0
+
+
 def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
     """Phase 12: ``matsa(mode='self_join')`` at ECG's length — window 512
     (ECG's Table V query length), stride 512, the exact profile in the
-    default batches of 256 — then 8 of its windows through the direct
-    route (``engine.sdtw`` with their bans) against the plain version over
-    the whole series, and the same profile in one batch of 4,096. Returns
-    the launches by path and the profile."""
+    path's batches (``profile_batch``: all 3,515 windows in one), that
+    batch and the first 256 windows against the plain version slice by
+    slice — then 8 of its windows through the direct route (``engine.sdtw`` with their
+    bans) against the plain version over the whole series, and the same
+    profile timed in batches of 256. Returns the launches by path and the
+    timings."""
     from repro_torch.core import engine
     from repro_torch.core.matsa_api import matsa
     from repro_torch.core.sdtw import self_join_exclusion
     from repro_torch.search import matrix_profile
+    from repro_torch.search.profile import profile_batch
     w = 512
     st = torch.as_tensor(series, device=dev)
-    # "auto" at 256 windows (a batch) and at 8: the chain kernel, whose
-    # 4 warps a window fill the card where one warp does not.
+    # "auto" at 256 windows (a batch of 256) and at 8: the chain kernel,
+    # whose 4 warps a window fill the card where one warp does not.
     kern = ops.choose_kernel(w, "auto", 256, ops.sm_count(0))
     if kern != ops.choose_kernel(w, "auto", 8, ops.sm_count(0)):
         raise AssertionError("a batch of 256 and one of 8 windows of 512 "
@@ -1002,10 +1033,13 @@ def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
     kernel_ms = timer.ms()
     prof = res.profile
     nw = len(prof.starts)
-    want = -(-nw // 256) * -(-len(series) // prof.chunk)
-    launches["self_join_ecg"] = _only(ops, f"{kern}_lastrow_ban",
+    n_chunks = -(-len(series) // prof.chunk)
+    batch = profile_batch(nw, w, prof.chunk, exact_kernel=True)
+    path_kern = ops.choose_kernel(w, "auto", batch, ops.sm_count(0))
+    want = -(-nw // batch) * n_chunks
+    launches["self_join_ecg"] = _only(ops, f"{path_kern}_lastrow_ban",
                                       "self-join")
-    if launches["self_join_ecg"][f"{kern}_lastrow_ban"] != want:
+    if launches["self_join_ecg"][f"{path_kern}_lastrow_ban"] != want:
         raise AssertionError(f"self-join: {want} launches expected")
     d = res.distances
     if d.shape != (nw,) or d.dtype != torch.int32 or d.device != st.device:
@@ -1014,39 +1048,24 @@ def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
     if not prof.valid.all() or not (prof.nn_dist < 2**29).all():
         raise AssertionError("self-join: a window without a neighbour")
 
-    # One batch of the path as ``_kernel_topk_scan`` launches it: the first
-    # 256 windows with their bans, slices of ``prof.chunk`` columns through
-    # the carry, held against the plain version slice by slice (each on
-    # its own carry) over the first 4 slices (the plain version's time
-    # grows with the columns).
-    c, nb, nsl = prof.chunk, min(256, nw), 4
-    s_b = prof.starts[:nb]
-    qb = torch.as_tensor(series[s_b[:, None] + np.arange(w)], device=dev)
-    lob, hib = (x.to(dev) for x in self_join_exclusion(s_b, w))
-    kc = pc = None
-    t0 = time.time()
-    for off in range(0, nsl * c, c):
-        kw_ = dict(track=True, lastrow=True, ref_offset=off, ref_len=c,
-                   excl_lo=lob, excl_hi=hib)
-        got = h.kernel(qb, st[off:off + c], carry=kc, **kw_)
-        ref = h.plain_raw(qb, st[off:off + c], carry=pc, **kw_)
-        h.record(f"{kern}_lastrow_ban", h.compare(
-            f"self-join batch of {nb}, slice at {off}", got, ref))
-        kc = (got[3], got[4], got[0], got[1], got[2])
-        pc = (ref[3], ref[4], ref[0], ref[1], ref[2])
-    del got, ref, kc, pc
-    log(f"phase 12: one batch of the path ({nb} windows with their bans, "
-        f"{nsl} slices of {c} through the carry) == plain version slice by "
-        f"slice, every output ({time.time() - t0:.1f} s)")
+    # The path's batch (every window, on the rows kernel) over 2 slices
+    # and the first 256 windows (the chain kernel) over 4, against the
+    # plain version slice by slice (its time grows with the columns).
+    c = prof.chunk
+    for nb, nsl, k_ in ((nw, 2, path_kern), (min(256, nw), 4, kern)):
+        sec = _batch_vs_plain(torch, np, ops, h, st, prof.starts[:nb], w, c,
+                              nsl, f"{k_}_lastrow_ban",
+                              f"self-join batch of {nb}")
+        log(f"phase 12: one batch of {nb} ({k_} kernel, windows with their "
+            f"bans, {nsl} slices of {c} through the carry) == plain version "
+            f"slice by slice, every output ({sec:.1f} s)")
     cells = nw * w * len(series)
     bound_s = cells * OPS_PER_CELL["span"] / int32_rate
     log(f"phase 12: matsa(self_join) window {w} stride {w} on {len(series)}"
-        f" samples: {nw} windows, {wall:.3f} s wall, kernel "
-        f"{kernel_ms:.3f} ms ({kernel_ms / 1e3 / wall:.1%}), "
+        f" samples: {nw} windows in batches of {batch}, {wall:.3f} s wall, "
+        f"kernel {kernel_ms:.3f} ms ({kernel_ms / 1e3 / wall:.1%}), "
         f"{cells:.4g} cells ({cells / wall:.4g} cells/s, int32 bound "
-        f"{bound_s:.3f} s), launches "
-        f"{launches['self_join_ecg'][f'{kern}_lastrow_ban']} {kern} K3 "
-        f"(chunk "
+        f"{bound_s:.3f} s), launches {want} {path_kern} K3 (chunk "
         f"{prof.chunk}); motifs {prof.motifs}, discords {prof.discords}")
 
     # 8 windows through the direct route, against the plain version with
@@ -1081,24 +1100,30 @@ def phase_self_join(torch, np, ops, kpkg, h, series, int32_rate, dev):
             raise AssertionError(f"self-join {f} != the direct route")
     del raw_k, raw_p
 
+    # The same profile in batches of 256, the default before the path
+    # sized its batch: the chain kernel, a launch a chunk a batch.
     ops.reset_launches()
     t0 = time.time()
     with KernelTimer(torch, kpkg) as timer:
-        whole = matrix_profile(series, w, stride=w, k=3, prune=False,
-                               batch=4096, device=dev)
-    wall_4096 = time.time() - t0
-    launches["self_join_ecg_4096"] = _only(ops, "rows_lastrow_ban",
-                                           "self-join batch 4096")
-    _same_profile("batch 4096 vs 256", whole, prof,
-                  ("starts", "nn_dist", "nn_start", "nn_end", "nn_window"))
+        small = matrix_profile(series, w, stride=w, prune=False, batch=256,
+                               device=dev)
+        torch.cuda.synchronize()
+    wall_256 = time.time() - t0
+    launches["self_join_ecg_256"] = _only(ops, f"{kern}_lastrow_ban",
+                                          "self-join batch 256")
+    if launches["self_join_ecg_256"][f"{kern}_lastrow_ban"] != (
+            -(-nw // 256) * n_chunks):
+        raise AssertionError("self-join batch 256: a launch a chunk a "
+                             "batch expected")
+    _same_profile(f"batch {batch} vs 256", prof, small)
     log(f"phase 12: 8 windows (direct route, K1 and K2 with bans) and their"
         f" last rows == plain version over the whole series, == the "
-        f"profile; batch 4096 (one rows-kernel launch a chunk): "
-        f"{wall_4096:.3f} s wall, "
-        f"kernel {timer.ms():.3f} ms, bitwise batch 256; k=3: motifs "
-        f"{whole.motifs}, discords {whole.discords}")
+        f"profile; batch 256 ({kern} kernel, "
+        f"{launches['self_join_ecg_256'][f'{kern}_lastrow_ban']} launches):"
+        f" {wall_256:.3f} s wall, kernel {timer.ms():.3f} ms, bitwise "
+        f"batch {batch} ({wall_256 / wall:.2f}x its wall)")
     return launches, {"wall_s": wall, "kernel_ms": kernel_ms,
-                      "wall_4096_s": wall_4096, "windows": nw}
+                      "wall_256_s": wall_256, "windows": nw}
 
 
 def phase_self_join_direct(torch, np, ops, h, series, w, dev):
@@ -1245,16 +1270,20 @@ def phase_self_join_long(torch, np, ops, h, series, w, kernel, dev):
 def phase_long_windows(torch, np, ops, kpkg, h, series, int32_rate, dev):
     """Phase 15: the chain kernel's full-width paths at ECG's length.
     ``matsa(mode="self_join", window=2048, stride=2048)`` (the exact
-    profile in the default batches of 256, every launch the chain
-    kernel's K3 with the ban), its first batch through all slices against
-    the wavefront kernel, 4 of its windows against the plain version over
-    the whole series, its motifs and discords against its distances; then
-    ``engine.sdtw(return_spans=True)`` of 64 queries of 4,096 against the
-    whole series on both long-query kernels, timed and held bitwise.
-    Returns the launches by path and the timings."""
+    profile in the path's batches, ``profile_batch``: all 878 windows in
+    one; every launch the chain kernel's K3 with the ban), the same
+    profile timed in batches of 256, the first batch of 256 through all
+    slices against the wavefront kernel, the path's batch over 2 slices
+    against the plain version, 4 of its windows against it over the whole
+    series, its motifs and discords against
+    its distances; then ``engine.sdtw(return_spans=True)`` of 64 queries
+    of 4,096 against the whole series on both long-query kernels, timed
+    and held bitwise. Returns the launches by path and the timings."""
     from repro_torch.core import engine
     from repro_torch.core.matsa_api import matsa
     from repro_torch.core.sdtw import self_join_exclusion
+    from repro_torch.search import matrix_profile
+    from repro_torch.search.profile import profile_batch
     w, m = 2048, len(series)
     st = torch.as_tensor(series, device=dev)
     launches, out = {}, {}
@@ -1270,7 +1299,9 @@ def phase_long_windows(torch, np, ops, kpkg, h, series, int32_rate, dev):
     launches["self_join_2048_ecg"] = _only(ops, "chain_lastrow_ban",
                                            "self-join 2048")
     n_launch = launches["self_join_2048_ecg"]["chain_lastrow_ban"]
-    if n_launch != -(-nw // 256) * -(-m // prof.chunk):
+    n_chunks = -(-m // prof.chunk)
+    batch = profile_batch(nw, w, prof.chunk, exact_kernel=True)
+    if n_launch != -(-nw // batch) * n_chunks:
         raise AssertionError(f"self-join 2048: {n_launch} launches")
     d = res.distances
     if (d.shape != (nw,) or d.dtype != torch.int32 or d.device != st.device
@@ -1293,14 +1324,37 @@ def phase_long_windows(torch, np, ops, kpkg, h, series, int32_rate, dev):
         f"({kernel_ms / 1e3 / wall:.1%}), {cells:.4g} cells "
         f"({cells / wall:.4g} cells/s, int32 bound "
         f"{cells * OPS_PER_CELL['span'] / int32_rate:.3f} s), {n_launch} "
-        f"launches (chunk {prof.chunk}, batch 256, "
-        f"{ops.resolve_chain(256, w, sms=ops.sm_count(0))} (W, R, queries "
+        f"launches (chunk {prof.chunk}, batch {batch}, "
+        f"{ops.resolve_chain(batch, w, sms=ops.sm_count(0))} (W, R, queries "
         f"a block)); motifs {prof.motifs}, discords {prof.discords}")
 
-    # The first batch as the path launches it (``_kernel_topk_scan``: the
-    # reference right-padded to whole chunks, the carry through them), on
-    # the chain kernel and on the wavefront, every output of every slice
-    # bitwise; the batch's harvest equals the profile.
+    # The same profile in batches of 256, the default before the path
+    # sized its batch.
+    ops.reset_launches()
+    t0 = time.time()
+    with KernelTimer(torch, kpkg) as timer:
+        small = matrix_profile(series, w, stride=w, prune=False, batch=256,
+                               device=dev)
+        torch.cuda.synchronize()
+    out["self_join_256_s"] = time.time() - t0
+    out["self_join_256_kernel_ms"] = timer.ms()
+    launches["self_join_2048_ecg_256"] = la = _only(
+        ops, "chain_lastrow_ban", "self-join 2048 batch 256")
+    if la["chain_lastrow_ban"] != -(-nw // 256) * n_chunks:
+        raise AssertionError(f"self-join 2048 batch 256: {la} launches")
+    _same_profile(f"self-join 2048 batch {batch} vs 256", prof, small)
+    log(f"phase 15: the same profile in batches of 256: "
+        f"{out['self_join_256_s']:.3f} s wall, kernel "
+        f"{out['self_join_256_kernel_ms']:.3f} ms, "
+        f"{la['chain_lastrow_ban']} launches "
+        f"({ops.resolve_chain(256, w, sms=ops.sm_count(0))}), bitwise "
+        f"batch {batch}")
+
+    # The first batch of 256 as the path launches a batch
+    # (``_kernel_topk_scan``: the reference right-padded to whole chunks,
+    # the carry through them), on the chain kernel and on the wavefront,
+    # every output of every slice bitwise; the batch's harvest equals the
+    # profile.
     c, nb = prof.chunk, min(256, nw)
     s_b = prof.starts[:nb]
     qb = torch.as_tensor(series[s_b[:, None] + np.arange(w)], device=dev)
@@ -1333,6 +1387,14 @@ def phase_long_windows(torch, np, ops, kpkg, h, series, int32_rate, dev):
         f"{ms['wavefront']:.3f} ms, every output of every slice bitwise "
         f"equal; harvest == profile")
     del got, carry
+
+    # The path's batch (every window) over 2 slices against the plain
+    # version slice by slice.
+    sec = _batch_vs_plain(torch, np, ops, h, st, prof.starts, w, c, 2,
+                          "chain_lastrow_ban", f"self-join 2048 batch of {nw}")
+    log(f"phase 15: the path's batch ({nw} windows with their bans, 2 slices"
+        f" of {c} through the carry) == plain version slice by slice, every "
+        f"output ({sec:.1f} s)")
 
     # 4 windows through the direct route, against the plain version with
     # their bans over the whole series.
@@ -3703,7 +3765,9 @@ def main() -> int:
     batch, spans = long_out["batch_ms"], long_out["spans_ms"]
     log(f"phase 15 summary: self-join window 2048 "
         f"{long_out['self_join_s']:.3f} s wall (kernel "
-        f"{long_out['self_join_kernel_ms']:.3f} ms); first batch chain "
+        f"{long_out['self_join_kernel_ms']:.3f} ms; in batches of 256 "
+        f"{long_out['self_join_256_s']:.3f} s, kernel "
+        f"{long_out['self_join_256_kernel_ms']:.3f} ms); first batch chain "
         f"{batch['chain']:.3f} ms, wavefront {batch['wavefront']:.3f} ms "
         f"({batch['wavefront'] / batch['chain']:.2f}x); 4,096 spans chain "
         f"{spans['chain']:.3f} ms, wavefront {spans['wavefront']:.3f} ms "

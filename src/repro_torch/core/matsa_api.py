@@ -55,9 +55,11 @@ def matsa(reference, queries=None, query_sizes=None, *,
 
     Self-join with ``exclusion=True``, ``impl='auto'`` and no ``mesh``
     routes through ``repro_torch.search.profile.matrix_profile`` (exact,
-    ``prune=False``, windows in bounded batches); the distances are the
-    direct route's bitwise, and ``MatsaResult.profile`` carries the whole
-    matrix profile (spans, motif pairs, discords).
+    ``prune=False``; on the card every window in one batch where a memory
+    budget admits them all, else the fewest equal batches that fit it:
+    ``profile_batch``); the distances are the direct route's bitwise, and
+    ``MatsaResult.profile`` carries the whole matrix profile (spans, motif
+    pairs, discords).
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")

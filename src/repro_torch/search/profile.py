@@ -10,8 +10,8 @@ scenario (§I, §V) over ECG- and seismology-class recordings.
 
   * windows follow ``self_join_windows``' convention (starts
     ``arange(0, M - window + 1, stride)`` in sample units), sliced per
-    bounded **batch**, so nothing is O(M²) and never all O(M) windows are
-    held at once;
+    bounded **batch** (``profile_batch``), so nothing is O(M²) and never
+    more windows are held at once than a memory budget admits;
   * trivial-match suppression is ``self_join_exclusion`` — banned
     reference columns in **sample** units (stride-invariant) — which on
     the card is the sDTW kernel's per-query column ban
@@ -48,7 +48,24 @@ from repro_torch.core.topk import discord_select, mutual_nearest_pairs
 from repro_torch.device import as_tensor, resolve_device, to_numpy
 
 from . import cache as cache_mod
+from . import search as search_mod
 from .search import default_chunk, search_topk
+
+#: Windows a batch where the batch's size does not decide the kernel's
+#: occupancy (the CPU row scan) or decides the answer's work (``prune=True``:
+#: batch composition decides which tying chunks are pruned).
+DEFAULT_BATCH = 256
+#: Device bytes the exact profile's kernel route may spend on one batch's
+#: chunk launch: ~4,000 windows of 512 at chunk 8,192, enough for the rows
+#: kernel to fill the card, at 1.3 % of an 80-GB card.
+BATCH_BUDGET_BYTES = 1 << 30
+#: Bytes a window costs a chunk column on the kernel route: the last-row
+#: capture and its start lane (8), then ``topk_merge``'s three
+#: concatenations and ``topk_select``'s temporaries at k = 1 (~22).
+_COLUMN_BYTES = 30
+#: Bytes a window costs a query row: its slab (4) and the kernel carry's
+#: two lanes in and out (16).
+_ROW_BYTES = 20
 
 
 @dataclasses.dataclass
@@ -71,7 +88,9 @@ class ProfileResult:
     ``motif_a``/``motif_b``/``motif_dist`` are (k,) mutually nearest pairs
     padded (-1, -1, inf); ``discord_idx``/``discord_dist`` (k,) padded
     (-1, -inf). The ``chunks_*`` counters sum ``search_topk``'s over all
-    batches.
+    batches, so at the default ``batch`` they follow ``profile_batch``'s
+    rule for the device: the same call counts fewer chunks on the card,
+    where the exact profile takes larger batches, than on the CPU.
     """
     window: int
     stride: int
@@ -156,10 +175,31 @@ def _assemble_profile(window, stride, k, starts, nn_dist, nn_start, nn_end,
         chunks_processed=stats[3])
 
 
+def profile_batch(nw: int, window: int, chunk: int, *,
+                  exact_kernel: bool) -> int:
+    """Windows a ``search_topk`` call of ``matrix_profile`` at its default
+    ``batch``.
+
+    The exact profile on the kernel route (``exact_kernel``: ``prune=False``
+    with the route resolving to the kernel) takes as many windows a batch
+    as ``BATCH_BUDGET_BYTES`` admits at ``chunk`` columns a launch: all
+    ``nw`` in one batch if they fit, else the fewest equal batches that
+    do. A batch that large is what fills the card; the answers do not
+    depend on it. Everything else takes ``DEFAULT_BATCH``.
+    """
+    if not exact_kernel:
+        return DEFAULT_BATCH
+    cap = max(1, BATCH_BUDGET_BYTES
+              // (_COLUMN_BYTES * chunk + _ROW_BYTES * window))
+    n_batches = -(-nw // cap)
+    return -(-nw // n_batches)
+
+
 def matrix_profile(series, window: int, stride: int = 1, k: int = 1, *,
                    metric: str = "abs_diff", chunk: Optional[int] = None,
                    prune: bool = True, span_cap: Optional[int] = None,
-                   excl_zone: Optional[int] = None, batch: int = 256,
+                   excl_zone: Optional[int] = None,
+                   batch: Optional[int] = None,
                    cache: Optional[cache_mod.EnvelopeCache] = None,
                    ref_key=None, engine_impl: str = "auto",
                    device=None) -> ProfileResult:
@@ -175,7 +215,10 @@ def matrix_profile(series, window: int, stride: int = 1, k: int = 1, *,
     trivial-match radius in samples, default ``window // 2``: window s
     bans columns ``[s - excl_zone, s + window + excl_zone)``, and the same
     radius separates reported motifs and discords); ``batch`` (windows
-    per ``search_topk`` call, the memory knob); ``cache``/``ref_key``
+    per ``search_topk`` call, the memory knob; ``None`` is
+    ``profile_batch``'s rule: on the kernel route the exact profile takes
+    as many windows a batch as a memory budget admits, else 256);
+    ``cache``/``ref_key``
     (envelope reuse across calls); ``engine_impl`` ('auto' is the kernel
     with its column ban on the card, the row scan on the CPU). ``device``
     is where the DP runs (``None``: the CUDA device). Each batch runs
@@ -193,7 +236,7 @@ def matrix_profile(series, window: int, stride: int = 1, k: int = 1, *,
         raise ValueError(f"stride must be >= 1, got {stride}")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if batch < 1:
+    if batch is not None and batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     zone = window // 2 if excl_zone is None else int(excl_zone)
     if zone < 0:
@@ -217,6 +260,11 @@ def matrix_profile(series, window: int, stride: int = 1, k: int = 1, *,
     nn_end = np.full((nw,), -1, np.int64)
     stats = [0, 0, 0, 0]
     col = np.arange(window, dtype=np.int64)
+    if batch is None:
+        route = (search_mod._auto_engine(dev) if engine_impl == "auto"
+                 else engine_impl)
+        batch = profile_batch(nw, window, c,
+                              exact_kernel=not prune and route == "pallas")
     for b0 in range(0, nw, batch):
         with obs.span("profile.batch"):
             sl = slice(b0, min(b0 + batch, nw))

@@ -14,7 +14,7 @@ from repro_torch import obs
 from repro_torch.core.matsa_api import matsa
 from repro_torch.device import as_tensor
 from repro_torch.kernels.sdtw import sdtw_cuda
-from repro_torch.search.profile import matrix_profile
+from repro_torch.search.profile import DEFAULT_BATCH, matrix_profile
 
 CPU = torch.device("cpu")
 
@@ -107,12 +107,15 @@ def test_matsa_gives_one_door_span_with_one_stage_inside():
 
 
 @pytest.mark.parametrize("window,stride,batch", [(16, 8, 10), (16, 8, 28),
-                                                  (16, 8, 64), (24, 5, 7)])
+                                                  (16, 8, 64), (24, 5, 7),
+                                                  (16, 1, None)])
 def test_matrix_profile_gives_a_span_a_batch(window, stride, batch):
     nw = (_series().shape[0] - window) // stride + 1
     _, spans = traced(lambda: call_matrix_profile(window, stride, batch))
     batches = [s for s in spans if s[0] == "repro_torch.profile.batch"]
-    assert len(batches) == math.ceil(nw / batch)
+    # The CPU's row scan takes 256 windows a batch by default.
+    resolved = DEFAULT_BATCH if batch is None else batch
+    assert len(batches) == math.ceil(nw / resolved)
     # The batches follow one another; each stages its windows.
     assert all(a[2] <= b[1] for a, b in zip(batches, batches[1:]))
     stages = [s for s in spans if s[0] == "repro_torch.stage"]

@@ -29,6 +29,8 @@ from repro.stream import StreamProfile as JStreamProfile
 from repro_torch.core.distances import big
 from repro_torch.core.matsa_api import matsa
 from repro_torch.search import ProfileResult, matrix_profile, search_topk
+from repro_torch.search import profile as profile_mod
+from repro_torch.search.profile import profile_batch
 from repro_torch.stream import StreamProfile
 
 FIELDS = [f.name for f in dataclasses.fields(ProfileResult)]
@@ -161,6 +163,59 @@ def test_profile_validates_args():
         with pytest.raises(ValueError) as got:
             _tprofile(*args, **kw)
         assert str(got.value) == str(want.value)
+
+
+# The window budget of one (40 windows of 8, chunk 16) on the kernel route.
+_WINDOW_BYTES = (profile_mod._COLUMN_BYTES * 16
+                 + profile_mod._ROW_BYTES * 8)
+
+
+@pytest.mark.parametrize("budget,want", [
+    (None, 40),     # all in one batch
+    (40, 40),       # exactly the cap
+    (39, 20),       # 2 equal batches
+    (7, 7),         # 7 x 5 + 5
+    (1, 1),
+], ids=["one-batch", "at-cap", "two-equal", "six-equal", "one-window"])
+def test_profile_batch_rule(budget, want, monkeypatch):
+    """``profile_batch``: the exact profile on the kernel route takes every
+    window in one batch under the memory budget, else the fewest equal
+    batches that fit it; anything else keeps 256."""
+    if budget is not None:
+        monkeypatch.setattr(profile_mod, "BATCH_BUDGET_BYTES",
+                            budget * _WINDOW_BYTES)
+    got = profile_batch(40, 8, 16, exact_kernel=True)
+    assert got == want
+    if budget is not None:      # no more batches than the cap needs
+        assert got <= budget and -(-40 // got) == -(-40 // budget)
+    assert profile_batch(40, 8, 16, exact_kernel=False) == 256
+
+
+@pytest.mark.parametrize("route,prune,batch,want", [
+    ("pallas", False, None, 293),       # the exact profile on the kernel
+    ("pallas", True, None, 256),        # pruned
+    ("rowscan", False, None, 256),      # the row scan
+    ("rowscan", True, None, 256),
+    ("pallas", False, 100, 100),        # an explicit batch wins
+    ("rowscan", True, 1000, 1000),
+], ids=["exact-kernel", "pruned-kernel", "exact-rowscan", "pruned-rowscan",
+        "explicit-kernel", "explicit-huge"])
+def test_profile_default_batch_by_route(route, prune, batch, want, rng,
+                                        monkeypatch):
+    """``matrix_profile``'s batch as its ``repro_torch.profile.batch``
+    spans count it, 293 windows of 8: the exact profile on the kernel
+    route in one batch, ``prune=True`` and the row scan in batches of
+    256, an explicit ``batch`` as given; every field the reference's at
+    that batch, the chunk counters included."""
+    import repro_torch.search.search as search_mod
+    from test_torch_obs import traced
+    series = rng.integers(-30, 30, 300).astype(np.int32)
+    kw = dict(prune=prune, chunk=64)
+    monkeypatch.setattr(search_mod, "_auto_engine", lambda dev: route)
+    got, spans = traced(lambda: _tprofile(series, 8, batch=batch, **kw))
+    assert [s[0] for s in spans].count(
+        "repro_torch.profile.batch") == -(-293 // want)
+    _same(got, jprofile(series, 8, batch=want, **kw))
 
 
 # ---------------------------------------------------------------------------
@@ -399,6 +454,36 @@ def test_profile_through_the_kernel_route(prune, rng, monkeypatch):
         banned.append(a[-1] is not None), plain(*a))[1])
     _same(_tprofile(series, 8, **kw), want)
     assert banned and all(banned)
+
+
+@pytest.mark.parametrize("budget", [None, 10])
+def test_profile_kernel_route_default_batch(budget, rng, monkeypatch):
+    """The exact profile on the kernel route at the default ``batch``:
+    38 windows in one batch, or (a budget of 10 windows) 4 batches of
+    10, 10, 10 and 8 — one ``repro_torch.profile.batch`` span each,
+    bitwise the ``batch=3`` profile on every field but the chunk
+    counters (summed over batches), and every field of the reference's
+    at the same batch."""
+    import repro_torch.search.search as search_mod
+    from test_torch_obs import traced
+    series = rng.integers(-30, 30, 120).astype(np.int32)
+    kw = dict(stride=3, prune=False, chunk=16, k=2)
+    nw = (120 - 8) // 3 + 1
+    if budget is not None:
+        monkeypatch.setattr(profile_mod, "BATCH_BUDGET_BYTES",
+                            budget * _WINDOW_BYTES)
+    monkeypatch.setattr(search_mod, "_auto_engine", lambda dev: "pallas")
+    small = _tprofile(series, 8, batch=3, **kw)
+    got, spans = traced(lambda: _tprofile(series, 8, **kw))
+    b = profile_batch(nw, 8, 16, exact_kernel=True)
+    assert b == (nw if budget is None else 10)
+    assert [s[0] for s in spans].count(
+        "repro_torch.profile.batch") == -(-nw // b)
+    for f in FIELDS:
+        if not f.startswith("chunks_"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(small, f),
+                                          err_msg=f)
+    _same(got, jprofile(series, 8, batch=b, **kw))
 
 
 def test_stream_profile_through_the_kernel_route(rng):

@@ -23,6 +23,7 @@ from repro_torch.core.matsa_api import matsa
 from repro_torch.kernels.sdtw import LAUNCHES, reset_launches, tuned_launch
 from repro_torch.kernels.sdtw.ops import sm_count
 from repro_torch.search import ProfileResult, matrix_profile
+from repro_torch.search.profile import profile_batch
 from repro_torch.stream import StreamProfile, StreamSession
 
 pytestmark = pytest.mark.cuda
@@ -36,8 +37,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _same(got, want):
-    for f in FIELDS:
+def _same(got, want, fields=FIELDS):
+    for f in fields:
         g, w = getattr(got, f), getattr(want, f)
         if isinstance(w, np.ndarray):
             assert g.dtype == w.dtype and g.shape == w.shape, f
@@ -71,7 +72,8 @@ def test_self_join_on_the_card_equals_cpu(window, m, stride, dtype, key,
                                           cuda):
     """``matsa(mode='self_join')`` routes through the exact profile; on
     the card every launch is the kernel's last-row capture with the ban,
-    and the profile is bitwise the CPU's."""
+    and the profile is bitwise the CPU's at the card's batch
+    (``profile_batch``), the chunk counters included."""
     rng = np.random.default_rng(window + m)
     series = rng.integers(-50, 50, m).astype(dtype)
     series[m // 3:m // 3 + window] = series[100:100 + window]
@@ -79,11 +81,13 @@ def test_self_join_on_the_card_equals_cpu(window, m, stride, dtype, key,
     got = matsa(series, mode="self_join", window=window, stride=stride,
                 device=cuda)
     _only(key)
-    want = matsa(series, mode="self_join", window=window, stride=stride,
-                 device="cpu")
-    _same(got.profile, want.profile)
-    np.testing.assert_array_equal(got.distances.cpu().numpy(),
-                                  want.distances.numpy())
+    prof = got.profile
+    batch = profile_batch(len(prof.starts), window, prof.chunk,
+                          exact_kernel=True)
+    want = matrix_profile(series, window, stride=stride, prune=False,
+                          batch=batch, device="cpu")
+    _same(prof, want)
+    np.testing.assert_array_equal(got.distances.cpu().numpy(), want.nn_dist)
     assert got.distances.device.type == "cuda"
 
 
@@ -97,6 +101,30 @@ def test_batch_does_not_change_the_exact_profile(cuda):
         if not f.startswith("chunks_"):
             np.testing.assert_array_equal(getattr(small, f),
                                           getattr(whole, f), err_msg=f)
+
+
+def test_self_join_takes_one_rows_batch_on_the_card(cuda):
+    """3,118 windows of 512, past the 12 an SM that switch the chain
+    kernel for the rows kernel: ``matsa(mode='self_join')`` runs them in
+    one batch, one rows K3 launch with the ban a chunk, bitwise the
+    ``batch=256`` profile (13 batches, each a launch a chunk)."""
+    rng = np.random.default_rng(512)
+    series = rng.integers(-50, 50, 200_000).astype(np.int32)
+    reset_launches()
+    got = matsa(series, mode="self_join", window=512, stride=64,
+                device=cuda).profile
+    _only("rows_lastrow_ban")
+    nw, n_chunks = len(got.starts), -(-200_000 // got.chunk)
+    assert nw == 3118 and LAUNCHES["rows_lastrow_ban"] == n_chunks
+    kernel = tuned_launch(256, 512, got.chunk, sms=sm_count(),
+                          variant="lastrow", ban=True,
+                          tune="model")[0]["kernel"]
+    reset_launches()
+    want = matrix_profile(series, 512, stride=64, prune=False, batch=256,
+                          device=cuda)
+    _only(f"{kernel}_lastrow_ban")
+    assert LAUNCHES[f"{kernel}_lastrow_ban"] == -(-nw // 256) * n_chunks
+    _same(got, want, [f for f in FIELDS if not f.startswith("chunks_")])
 
 
 def test_pruned_profile_on_the_card_equals_cpu(cuda):
